@@ -1,0 +1,294 @@
+#!/usr/bin/env python3
+"""Smoke test of mapquik_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each timed on its own line:
+  1. environment: the card, its power limit, torch and CUDA versions;
+  2. build both seeding kernels with nvcc;
+  3. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes, bit for bit, including rows made to raise both
+     compaction markers; median kernel and plain times from CUDA events;
+  4. golden example: example/'s genome and 100 reads regenerated with the
+     port's simulator, mapped on the card, PAF equal to example/expected.paf;
+  5. main path at a realistic size: a 16 Mb genome indexed on the card, 2048
+     simulated 24 kb HiFi reads plus 32 reads of 40-60 kb (the 64 kb bin),
+     mapped through Mapper; both kernels launched, the PAF set equal to the
+     same run with the plain versions, 0 wrong and >= 99% of reads at Q60.
+Then a JSON line of the kernels, the card's name and power limit, and as the
+last line {"ok": true, "device": {...}}. Any failed phase exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from mapquik_tpu_torch.eval.mapeval import evaluate_paf  # noqa: E402
+from mapquik_tpu_torch.eval.simulate import markov_genome, simulate_reads  # noqa: E402
+from mapquik_tpu_torch.ops import cuda_seeding as cs  # noqa: E402
+from mapquik_tpu_torch.ops import seeding as sd  # noqa: E402
+from mapquik_tpu_torch.ops.pipeline import Mapper  # noqa: E402
+from mapquik_tpu_torch.params import Params  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+TPU_KERNELS = "mapquik_tpu/ops/pallas_seeding.py"
+
+# tandem monomers whose l-mers select more than one compaction block's cap,
+# found by searching short monomers with the port's plain nthash_sel
+SATELLITE = {(31, 0.01): (0, 1, 0, 1, 3, 2), (31, 0.05): (0, 2)}
+
+
+def phase(name):
+    class _Phase:
+        def __enter__(self):
+            self.t = time.perf_counter()
+            print(f"[phase {name}] start", flush=True)
+
+        def __exit__(self, *exc):
+            if exc[0] is None:
+                print(f"[phase {name}] {time.perf_counter() - self.t:.2f} s", flush=True)
+
+    return _Phase()
+
+
+def cuda_ms(fn, reps: int, inner: int) -> float:
+    """Median over `reps` of the mean time of `inner` back-to-back calls,
+    from CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+def max_abs_err(pairs) -> int:
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in pairs)
+
+
+def compact_rows(rng, B, L, l, density):
+    """Codes and lengths for the compaction kernel: random rows with N runs
+    and short lengths, a tandem-repeat row that overflows a block's cap, and
+    a homopolymer-rich stretch that exhausts the halo of block 0."""
+    codes = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    lens = np.full(B, L, np.int32)
+    codes[0, 100:400] = 4
+    lens[1] = L // 3 + 17
+    lens[2] = 0
+    lens[3] = l + 3
+    mono = np.array(SATELLITE[(l, density)], np.uint8)
+    codes[4, :4096] = np.tile(mono, 4096 // mono.size + 1)[:4096]
+    codes[5, 1990:2400] = np.repeat(np.arange(21) % 4, 20)[:410].astype(np.uint8)
+    return codes, lens
+
+
+def check_compact(rng, kernels):
+    B, l = 256, 31
+    for L in (32768, 24576):
+        for d in (0.01, 0.05):
+            p = Params(l=l, density=d, max_read_len=L, length_bins=())
+            codes, lens = compact_rows(rng, B, L, l, d)
+            ck = sd._pack_ck(torch.from_numpy(codes).cuda(), torch.from_numpy(lens).cuda(), p)
+            kc, kp = cs.seed_select_compact(ck, l, p.hash_threshold, L)
+            pc, pp = cs.seed_select_compact_plain(ck, l, p.hash_threshold, L)
+            torch.cuda.synchronize()
+            if not (torch.equal(kc, pc) and torch.equal(kp, pp)):
+                raise AssertionError(f"seed_select_compact differs from plain at L={L} d={d}")
+            kblk = cs.block_cap(p.hash_threshold)
+            marks = (kp.view(B, -1, kblk)[:, :, kblk - 1] == cs.MARKER).cpu().numpy()
+            if not (marks[4, 0] and marks[5, 0]):
+                raise AssertionError(f"marker rows did not raise markers at L={L} d={d}")
+            err = max_abs_err([(kc, pc), (kp, pp)])
+            print(f"seed_select_compact [{B}, {L}+256] d={d}: both planes bit-identical "
+                  f"(tolerance: exact), {int(marks.sum())} marked blocks, max_abs_err {err}",
+                  flush=True)
+            if L == 32768 and d == 0.01:  # the main path's shape
+                ms = cuda_ms(lambda: cs.seed_select_compact(ck, l, p.hash_threshold, L), 7, 20)
+                plain_ms = cuda_ms(
+                    lambda: cs.seed_select_compact_plain(ck, l, p.hash_threshold, L), 5, 1)
+                nbytes = ck.numel() + 2 * kc.numel() * 4
+                kernels["seed_select_compact"].update(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+                )
+                print(f"seed_select_compact [{B}, {L}+256] d={d}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                      f"({nbytes} bytes)", flush=True)
+
+
+def check_nthash(rng, kernels):
+    B, L, l = 256, 65536, 31
+    p = Params()
+    hc = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    hc[0, 1000:1300] = 4
+    hc[1, L - 5000:] = 4
+    hc[2, :7] = 4
+    hc[3, 30000:30040] = 4
+    hc = torch.from_numpy(hc).cuda()
+    kc, ks = cs.nthash_sel(hc, l, p.hash_threshold)
+    pc, ps = cs.nthash_sel_plain(hc, l, p.hash_threshold)
+    _, valid = sd.nthash32_batch(hc, l)
+    torch.cuda.synchronize()
+    if not (torch.equal(ks, ps) and torch.equal(kc[valid], pc[valid])):
+        raise AssertionError("nthash_sel differs from plain")
+    err = max_abs_err([(ks, ps), (kc[valid], pc[valid])])
+    ms = cuda_ms(lambda: cs.nthash_sel(hc, l, p.hash_threshold), 7, 10)
+    plain_ms = cuda_ms(lambda: cs.nthash_sel_plain(hc, l, p.hash_threshold), 5, 1)
+    nbytes = hc.numel() + 2 * hc.numel() * 4
+    kernels["nthash_sel"].update(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+    )
+    print(f"nthash_sel [{B}, {L}] l={l}: selkey bit-identical, canon bit-identical at "
+          f"{int(valid.sum())} valid windows (tolerance: exact), max_abs_err {err}; "
+          f"kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+          f"({nbytes} bytes)", flush=True)
+
+
+def long_reads(genome, n, seed):
+    """n exact reads of 40-60 kb cut from the genome, half reverse-complemented,
+    named with their truth like the simulator's reads."""
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        name, seq = genome[int(rng.integers(0, len(genome)))]
+        L = int(rng.integers(40_000, 60_001))
+        start = int(rng.integers(0, len(seq) - L))
+        frag = seq[start : start + L]
+        strand = "+" if rng.random() < 0.5 else "-"
+        if strand == "-":
+            frag = frag.translate(comp)[::-1]
+        out.append((f"L_{i + 1}!{name}!{start + 1}!{start + L}!{strand}", frag))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    t_all = time.perf_counter()
+    with phase("1 environment"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        card = smi
+        print(f"card: {smi}")
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
+
+    with phase("2 kernel build"):
+        reports = cs.build_kernels()
+        for name, log in reports.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  {name}: {line.strip()}")
+
+    kernels = {
+        "seed_select_compact": {
+            "name": "seed_select_compact", "route": "cuda",
+            "source": "mapquik_tpu_torch/csrc/seed_select_compact.cu",
+            "replaces": f"{TPU_KERNELS}:363",
+        },
+        "nthash_sel": {
+            "name": "nthash_sel", "route": "cuda",
+            "source": "mapquik_tpu_torch/csrc/nthash_sel.cu",
+            "replaces": f"{TPU_KERNELS}:83,113",
+        },
+    }
+    rng = np.random.default_rng(7)
+    with phase("3 kernels against plain versions"):
+        check_compact(rng, kernels)
+        check_nthash(rng, kernels)
+
+    with phase("4 golden example"):
+        genome = markov_genome(4_600_000, seed=20230127, n_contigs=1)
+        genome = [("chrsim000913", genome[0][1])]
+        reads = simulate_reads(genome, 100, mean_len=24_000, accuracy=0.999, seed=20230128)
+        p_ex = Params.auto(k=8, l=16, density=0.01, g=100)
+        lines = sorted(Mapper(genome, p_ex, device="cuda").map_reads(reads))
+        with open(os.path.join(ROOT, "example", "expected.paf")) as f:
+            expected = sorted(f.read().strip().split("\n"))
+        if lines != expected:
+            raise AssertionError(
+                f"example PAF differs from example/expected.paf "
+                f"({len(set(lines) ^ set(expected))} lines differ)")
+        print(f"example: {len(lines)} PAF lines equal to example/expected.paf")
+
+    with phase("5 main path"):
+        t = time.perf_counter()
+        genome = markov_genome(16_000_000, seed=11, n_contigs=4)
+        reads = simulate_reads(genome, 2048, mean_len=24_000, accuracy=0.99, seed=12)
+        reads += long_reads(genome, 32, seed=13)
+        print(f"inputs: {len(reads)} reads, {sum(len(s) for _, s in reads)} bases, "
+              f"made in {time.perf_counter() - t:.2f} s")
+        p = Params()
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        t = time.perf_counter()
+        mapper = Mapper(genome, p, device="cuda")
+        torch.cuda.synchronize()
+        t_index = time.perf_counter() - t
+        t = time.perf_counter()
+        lines = list(mapper.map_reads(reads))
+        torch.cuda.synchronize()
+        t_map = time.perf_counter() - t
+        launches = dict(cs.LAUNCHES)
+        print(f"index: 16 Mb, {mapper.n_unique} unique k-min-mers in {t_index:.3f} s on {card}")
+        print(f"map: {len(reads)} reads in {t_map:.3f} s, {len(reads) / t_map:.1f} reads/s "
+              f"on {card} (host loop, first call, includes host packing and PAF output)")
+        print(f"launches on the main path: {launches}")
+        for name, n in launches.items():
+            kernels[name]["launches"] = n
+            if n == 0:
+                raise AssertionError(f"{name} was not launched on the main path")
+
+        t = time.perf_counter()
+        plain = Mapper(genome, p, device="cuda", seeding="plain")
+        plain_lines = list(plain.map_reads(reads))
+        torch.cuda.synchronize()
+        print(f"plain versions: index + map in {time.perf_counter() - t:.3f} s")
+        if not (torch.equal(plain.index.keys, mapper.index.keys)
+                and torch.equal(plain.index.pay, mapper.index.pay)):
+            raise AssertionError("index built with the kernels differs from the plain build")
+        if sorted(lines) != sorted(plain_lines):
+            raise AssertionError(
+                f"PAF with kernels differs from PAF with plain versions "
+                f"({len(set(lines) ^ set(plain_lines))} lines differ)")
+        res = evaluate_paf(lines, n_reads=len(reads))
+        print(f"mapeval: {res.summary()}")
+        if res.n_wrong != 0 or res.q60_total < 0.99 * len(reads):
+            raise AssertionError(f"accuracy below the bar: {res.summary()}")
+
+    print(f"total {time.perf_counter() - t_all:.2f} s")
+    order = ["seed_select_compact", "nthash_sel"]
+    print(json.dumps({"kernels": [kernels[n] for n in order]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

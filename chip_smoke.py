@@ -4,17 +4,24 @@
     python3 chip_smoke.py
 
 Phases, each timed on its own line:
-  1. environment: the card, its power limit, torch and CUDA versions;
-  2. build both seeding kernels with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, bit for bit, including rows made to raise both
-     compaction markers; median kernel and plain times from CUDA events;
+  1. environment: the card, its power limit and maximum SM clock, torch and
+     CUDA versions;
+  2. build both seeding kernels with nvcc (registers and spills printed);
+  3. each kernel against its plain PyTorch version on the card, bit for bit:
+     at the main path's shapes, including rows made to raise both compaction
+     markers, and on random rows at B = 100 and 256 with l = 4, 31 and 32
+     (nthash_sel also at a ragged L = 40000); median kernel and plain times
+     from CUDA events at the main path's shapes, beside the bytes bound and
+     the operations bound (counted from the run's data);
   4. golden example: example/'s genome and 100 reads regenerated with the
      port's simulator, mapped on the card, PAF equal to example/expected.paf;
   5. main path at a realistic size: a 16 Mb genome indexed on the card, 2048
      simulated 24 kb HiFi reads plus 32 reads of 40-60 kb (the 64 kb bin),
      mapped through Mapper; both kernels launched, the PAF set equal to the
-     same run with the plain versions, 0 wrong and >= 99% of reads at Q60.
+     same run with the plain versions, 0 wrong and >= 99% of reads at Q60;
+     then 300 of those reads and the 32 long ones mapped again with
+     batch_size=100 (no multiple of 32): both kernels launched, the PAF set
+     equal to the batch-256 run's over those reads.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -42,7 +49,18 @@ from mapquik_tpu_torch.ops.pipeline import Mapper  # noqa: E402
 from mapquik_tpu_torch.params import Params  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (NVIDIA Hopper white paper)
 TPU_KERNELS = "mapquik_tpu/ops/pallas_seeding.py"
+
+# Integer operations the seeding functions need, counted from the run's data
+# and independent of how a kernel splits the work: per window lane of a
+# compaction tile (test its run-start flag, add it to the prefix count), per
+# run start (its stream index, its packed entry), and per rolling step of one
+# window (4 seed lookups, 6 rotates and XORs for fwd and rev, 2 for validity,
+# the min, the threshold test, and 2 for the selection flag and its slot or
+# key). A contiguous stream (a compaction tile's, an nthash_sel row) starts
+# its first window with l - 1 warm-up steps, counted at the same cost.
+OPS_LANE, OPS_RUN_START, OPS_WINDOW = 2, 2, 16
 
 # tandem monomers whose l-mers select more than one compaction block's cap,
 # found by searching short monomers with the port's plain nthash_sel
@@ -84,6 +102,33 @@ def max_abs_err(pairs) -> int:
     return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in pairs)
 
 
+def bounds(nbytes: int, ops: int, int32_per_s: float) -> dict:
+    """The least time of the work: bytes over the memory rate, integer
+    operations over the int32 rate; the larger one bounds it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / int32_per_s * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def compact_ops(ck: torch.Tensor, l: int) -> int:
+    """Integer operations seed_select_compact needs on these inputs: per tile,
+    every window lane, every run start, and one rolling step for each owned
+    run (the tile's c_core windows) after one warm-up of l - 1 steps."""
+    keep = ((ck.unfold(1, cs._WC, cs._CBLK) >> 3) & 1).to(torch.int64)
+    c_total = keep.sum(-1)
+    c_core = keep[..., : cs._CBLK].sum(-1)
+    tiles = keep.shape[0] * keep.shape[1]
+    return int(tiles * cs._WC * OPS_LANE + c_total.sum() * OPS_RUN_START
+               + (c_core.sum() + tiles * (l - 1)) * OPS_WINDOW)
+
+
+def nthash_ops(B: int, L: int, l: int) -> int:
+    """Integer operations nthash_sel needs on B rows of L positions: one
+    rolling step per position after one warm-up of l - 1 steps per row."""
+    return B * (L + l - 1) * OPS_WINDOW
+
+
 def compact_rows(rng, B, L, l, density):
     """Codes and lengths for the compaction kernel: random rows with N runs
     and short lengths, a tandem-repeat row that overflows a block's cap, and
@@ -100,7 +145,7 @@ def compact_rows(rng, B, L, l, density):
     return codes, lens
 
 
-def check_compact(rng, kernels):
+def check_compact(rng, kernels, int32_per_s):
     B, l = 256, 31
     for L in (32768, 24576):
         for d in (0.01, 0.05):
@@ -125,16 +170,34 @@ def check_compact(rng, kernels):
                 plain_ms = cuda_ms(
                     lambda: cs.seed_select_compact_plain(ck, l, p.hash_threshold, L), 5, 1)
                 nbytes = ck.numel() + 2 * kc.numel() * 4
+                ops = compact_ops(ck, l)
+                bd = bounds(nbytes, ops, int32_per_s)
                 kernels["seed_select_compact"].update(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bd["bound_ms"],
+                    bound_by=bd["bound_by"], library_ms=None,
                 )
                 print(f"seed_select_compact [{B}, {L}+256] d={d}: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                      f"({nbytes} bytes)", flush=True)
+                      f"plain {plain_ms:.4f} ms, bytes bound {bd['bytes_ms']:.4f} ms "
+                      f"({nbytes} bytes), operations bound {bd['ops_ms']:.4f} ms ({ops} int32 "
+                      f"operations), bound by {bd['bound_by']}", flush=True)
+    # random rows at other batch sizes and window lengths
+    L, d = 32768, 0.01
+    for B in (100, 256):
+        for l in (4, 31, 32):
+            p = Params(l=l, density=d, max_read_len=L, length_bins=())
+            codes = torch.from_numpy(rng.integers(0, 4, (B, L), dtype=np.uint8)).cuda()
+            lens = torch.from_numpy(rng.integers(L // 2, L + 1, B).astype(np.int32)).cuda()
+            ck = sd._pack_ck(codes, lens, p)
+            kc, kp = cs.seed_select_compact(ck, l, p.hash_threshold, L)
+            pc, pp = cs.seed_select_compact_plain(ck, l, p.hash_threshold, L)
+            torch.cuda.synchronize()
+            if not (torch.equal(kc, pc) and torch.equal(kp, pp)):
+                raise AssertionError(f"seed_select_compact differs from plain at B={B} l={l}")
+            print(f"seed_select_compact [{B}, {L}+256] l={l} d={d} random rows: both planes "
+                  f"bit-identical, {int((kp < cs.MARKER).sum())} selected", flush=True)
 
 
-def check_nthash(rng, kernels):
+def check_nthash(rng, kernels, int32_per_s):
     B, L, l = 256, 65536, 31
     p = Params()
     hc = rng.integers(0, 4, (B, L), dtype=np.uint8)
@@ -153,15 +216,33 @@ def check_nthash(rng, kernels):
     ms = cuda_ms(lambda: cs.nthash_sel(hc, l, p.hash_threshold), 7, 10)
     plain_ms = cuda_ms(lambda: cs.nthash_sel_plain(hc, l, p.hash_threshold), 5, 1)
     nbytes = hc.numel() + 2 * hc.numel() * 4
+    ops = nthash_ops(B, L, l)
+    bd = bounds(nbytes, ops, int32_per_s)
     kernels["nthash_sel"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bd["bound_ms"],
+        bound_by=bd["bound_by"], library_ms=None,
     )
     print(f"nthash_sel [{B}, {L}] l={l}: selkey bit-identical, canon bit-identical at "
           f"{int(valid.sum())} valid windows (tolerance: exact), max_abs_err {err}; "
-          f"kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-          f"({nbytes} bytes)", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bytes bound {bd['bytes_ms']:.4f} ms "
+          f"({nbytes} bytes), operations bound {bd['ops_ms']:.4f} ms ({ops} int32 operations), "
+          f"bound by {bd['bound_by']}", flush=True)
+    # random rows with N runs at other batch sizes, window lengths and a ragged L
+    for L in (65536, 40000):
+        for B in (100, 256):
+            for l in (4, 31, 32):
+                thr = Params(l=l).hash_threshold
+                hc = rng.integers(0, 4, (B, L), dtype=np.uint8)
+                hc[rng.random((B, L)) < 0.002] = 4
+                hc = torch.from_numpy(hc).cuda()
+                kc, ks = cs.nthash_sel(hc, l, thr)
+                pc, ps = cs.nthash_sel_plain(hc, l, thr)
+                _, valid = sd.nthash32_batch(hc, l)
+                torch.cuda.synchronize()
+                if not (torch.equal(ks, ps) and torch.equal(kc[valid], pc[valid])):
+                    raise AssertionError(f"nthash_sel differs from plain at B={B} L={L} l={l}")
+                print(f"nthash_sel [{B}, {L}] l={l} random rows: selkey bit-identical, canon "
+                      f"bit-identical at {int(valid.sum())} valid windows", flush=True)
 
 
 def long_reads(genome, n, seed):
@@ -193,7 +274,14 @@ def main() -> int:
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
         card = smi
-        print(f"card: {smi}")
+        clock = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        int32_per_s = sms * INT32_LANES_PER_SM * float(clock.split()[0]) * 1e6
+        print(f"card: {smi}; max SM clock {clock}, {sms} SMs: int32 rate "
+              f"{int32_per_s / 1e12:.3f} T operations/s")
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
 
@@ -218,15 +306,17 @@ def main() -> int:
     }
     rng = np.random.default_rng(7)
     with phase("3 kernels against plain versions"):
-        check_compact(rng, kernels)
-        check_nthash(rng, kernels)
+        check_compact(rng, kernels, int32_per_s)
+        check_nthash(rng, kernels, int32_per_s)
 
     with phase("4 golden example"):
         genome = markov_genome(4_600_000, seed=20230127, n_contigs=1)
         genome = [("chrsim000913", genome[0][1])]
         reads = simulate_reads(genome, 100, mean_len=24_000, accuracy=0.999, seed=20230128)
         p_ex = Params.auto(k=8, l=16, density=0.01, g=100)
+        cs.reset_launches()
         lines = sorted(Mapper(genome, p_ex, device="cuda").map_reads(reads))
+        print(f"launches: {dict(cs.LAUNCHES)}")
         with open(os.path.join(ROOT, "example", "expected.paf")) as f:
             expected = sorted(f.read().strip().split("\n"))
         if lines != expected:
@@ -279,6 +369,27 @@ def main() -> int:
         print(f"mapeval: {res.summary()}")
         if res.n_wrong != 0 or res.q60_total < 0.99 * len(reads):
             raise AssertionError(f"accuracy below the bar: {res.summary()}")
+
+        # a batch size that is no multiple of 32 runs both kernels too
+        sub = reads[:300] + reads[-32:]
+        names = {name for name, _ in sub}
+        small = Mapper.from_index(mapper.index, mapper.meta, Params(batch_size=100),
+                                  device="cuda")
+        torch.cuda.synchronize()
+        cs.reset_launches()
+        sub_lines = list(small.map_reads(sub))
+        torch.cuda.synchronize()
+        sub_launches = dict(cs.LAUNCHES)
+        print(f"batch_size=100: {len(sub)} reads, launches {sub_launches}")
+        for name, n in sub_launches.items():
+            if n == 0:
+                raise AssertionError(f"{name} was not launched at batch_size=100")
+        want = sorted(x for x in lines if x.split("\t", 1)[0] in names)
+        if sorted(sub_lines) != want:
+            raise AssertionError(
+                f"PAF at batch_size=100 differs from the batch-256 run "
+                f"({len(set(sub_lines) ^ set(want))} lines differ)")
+        print(f"batch_size=100: {len(sub_lines)} PAF lines equal to the batch-256 run's")
 
     print(f"total {time.perf_counter() - t_all:.2f} s")
     order = ["seed_select_compact", "nthash_sel"]

@@ -11,6 +11,16 @@ stream:
   - `nthash_sel` (csrc/nthash_sel.cu): canonical ntHash of every l-mer of
     HPC codes plus the density-selected position key.
 
+Both roll the ntHash over runs of consecutive windows
+(csrc/rolling_nthash.cuh) on a persistent grid that copies its next tile in
+with cp.async while it works on the current one.
+
+The shape guards state what the kernels take, and nothing of the TPU's
+tiling: any row count 0 < B < 2^16 and 4 <= l <= 32 for both;
+`seed_select_compact` works in 2048-lane blocks (L % 2048 == 0) and packs
+start and end into 16 bits each (L <= 2^15); `nthash_sel` treats the batch
+as one flat stream of 32-bit positions (B * L < 2^31) and takes any L.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. The plain versions (`*_plain`) compute the same
 function with tensor ops: the CPU tests hold them against the JAX package,
@@ -33,8 +43,6 @@ import torch
 from ..oracle.pyref import INVALID, SEED32, SEED32C
 from .u32 import BIG, i32, rol32, seed_tables, ult, umin
 
-_SUB = 32      # row multiple both kernel paths take (the JAX path choice)
-_BLK = 512     # length multiple of the nthash_sel path
 _CBLK = 2048   # compaction block: owned core lanes per (row, block)
 _H = 256       # right halo lanes read past each core
 _WC = _CBLK + _H
@@ -60,14 +68,14 @@ def block_cap(threshold: int) -> int:
 
 
 def compact_available(B: int, L: int, l: int) -> bool:
-    """Shapes the compaction path takes (the 16-bit start/end packing needs
-    L <= 2^15)."""
-    return B % _SUB == 0 and L % _CBLK == 0 and 4 <= l <= 32 and L <= (1 << 15)
+    """Shapes seed_select_compact takes: whole 2048-lane blocks, and
+    L <= 2^15 for the 16-bit start/end packing."""
+    return 0 < B < (1 << 16) and L % _CBLK == 0 and 0 < L <= (1 << 15) and 4 <= l <= 32
 
 
 def nthash_sel_available(B: int, L: int, l: int) -> bool:
-    """Shapes the nthash_sel path takes."""
-    return B % _SUB == 0 and L % _BLK == 0 and 4 <= l <= 32
+    """Shapes nthash_sel takes: any L, with the batch's positions in 31 bits."""
+    return 0 < B < (1 << 16) and 0 < L and B * L < (1 << 31) and 4 <= l <= 32
 
 
 # ---------------------------------------------------------------------------
@@ -172,16 +180,14 @@ def seed_select_compact_plain(ck: torch.Tensor, l: int, threshold: int, L: int):
 def _check_compact(ck: torch.Tensor, l: int, L: int) -> None:
     if ck.dtype != torch.uint8 or ck.dim() != 2 or ck.shape[1] != L + _H:
         raise ValueError(f"ck must be uint8 [B, L + {_H}], got {ck.dtype} {tuple(ck.shape)}")
-    if not (L % _CBLK == 0 and 0 < L <= (1 << 15) and 4 <= l <= 32):
-        raise ValueError(f"unsupported shape L={L} l={l}")
-    if not 0 < ck.shape[0] < (1 << 16):
-        raise ValueError(f"unsupported batch {ck.shape[0]}")
+    if not compact_available(ck.shape[0], L, l):
+        raise ValueError(f"unsupported shape B={ck.shape[0]} L={L} l={l}")
 
 
 def _check_nthash(hcodes: torch.Tensor, l: int) -> None:
     if hcodes.dtype != torch.uint8 or hcodes.dim() != 2:
         raise ValueError(f"hcodes must be uint8 [B, L], got {hcodes.dtype} {tuple(hcodes.shape)}")
-    if not (4 <= l <= 32 and 0 < hcodes.shape[1] and 0 < hcodes.shape[0] < (1 << 16)):
+    if not nthash_sel_available(*hcodes.shape, l):
         raise ValueError(f"unsupported shape {tuple(hcodes.shape)} l={l}")
 
 
@@ -196,16 +202,17 @@ SOURCES = {
     "seed_select_compact": "seed_select_compact.cu",
     "nthash_sel": "nthash_sel.cu",
 }
+HEADERS = ("rolling_nthash.cuh",)  # included by every source
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 _LIBS: dict = {}
-_SEEDS = np.concatenate([SEED32, SEED32C]).astype(np.uint32)
+_SEEDS = np.concatenate([SEED32[:4], SEED32C[:4]]).astype(np.uint32)  # codes 0..3
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    src = b"".join((CSRC / f).read_bytes() for f in (SOURCES[name], *HEADERS))
     tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -271,8 +278,8 @@ def _load(name: str) -> ctypes.CDLL:
 
 
 def _launch(name: str, x: torch.Tensor, *args) -> None:
-    if not x.is_contiguous() or x.data_ptr() % 4:
-        raise ValueError(f"{name}: input must be contiguous and 4-byte aligned")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be contiguous and 16-byte aligned")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(_load(name), f"mq_{name}")(

@@ -30,6 +30,7 @@ from mapquik_tpu_torch.eval import simulate as tsim
 from mapquik_tpu_torch.index.lookup import ProbeResult
 from mapquik_tpu_torch.io import fastx as tfastx
 from mapquik_tpu_torch.ops import chaining as tchain
+from mapquik_tpu_torch.ops import cuda_seeding as cs
 from mapquik_tpu_torch.ops import matching as tmatch
 from mapquik_tpu_torch.ops.pipeline import Mapper
 from mapquik_tpu_torch.ops.seeding import SeedBatch
@@ -169,6 +170,28 @@ def test_matches_and_chains_identical(seed, fix_bug):
     jres = jchain.project_coords(jsel, q_len, ref_lens)
     tres = tchain.project_coords(tsel, torch.from_numpy(q_len), torch.from_numpy(ref_lens))
     _assert_fields_equal(tres[:9], jres[:9], tchain.MapResult._fields)
+
+
+def test_mapper_kernel_path_at_any_batch_size(genome, reads, monkeypatch):
+    """batch_size=40 (no multiple of 32): the kernel path (plain versions on
+    the CPU) gives the PAF of the exact path, and both kernels' wrappers are
+    called at 40 rows: the compaction for the 2048 bin, nthash_sel for the
+    3072 bin and the index windows."""
+    p = tparams.Params.auto(k=5, l=17, density=0.1, max_read_len=3072,
+                            length_bins=(2048,), batch_size=40)
+    calls = []
+    for name in ("seed_select_compact", "nthash_sel"):
+        wrapped = getattr(cs, name)
+
+        def spy(x, *args, _name=name, _fn=wrapped):
+            calls.append((_name, x.shape[0]))
+            return _fn(x, *args)
+
+        monkeypatch.setattr(cs, name, spy)
+    got = sorted(Mapper(genome, p, device="cpu").map_reads(reads))
+    assert {name for name, B in calls if B == 40} == {"seed_select_compact", "nthash_sel"}
+    assert got == sorted(Mapper(genome, p, device="cpu", seeding="exact").map_reads(reads))
+    assert len(got) >= 28
 
 
 def test_mapper_from_converted_index(reads, jax_index, jax_lines):

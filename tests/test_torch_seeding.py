@@ -17,6 +17,7 @@ from mapquik_tpu.params import Params as JParams
 from mapquik_tpu_torch.convert import params_from_jax
 from mapquik_tpu_torch.ops import cuda_seeding as cs
 from mapquik_tpu_torch.ops import seeding as sd
+from mapquik_tpu_torch.oracle.pyref import INVALID, SEED32, SEED32C
 
 # tandem monomers whose l-mers overflow one compaction block's cap at (l, d)
 SATELLITE = {(31, 0.01): (0, 1, 0, 1, 3, 2), (17, 0.05): (0, 1), (16, 0.02): (0, 1, 0, 3)}
@@ -141,6 +142,42 @@ class TestSeedBatch:
         assert int(tsb.start.max()) > (1 << 15)
 
 
+    @pytest.mark.parametrize("L", [4096, 3584])
+    def test_kernel_path_at_any_row_count(self, L):
+        """B = 40 (no multiple of 32) takes the kernel path in the port: the
+        compaction at L = 4096, nthash_sel at L = 3584. JAX takes its exact
+        path there (which needs L % 512 == 0). At L = 3584 every row matches in
+        every field; at L = 4096 the two marker rows ask for the exact-path
+        retry, and every other row matches in every field."""
+        B, cap, l, density = 40, 2048, 31, 0.01
+        assert cs.nthash_sel_available(B, L, l)
+        assert cs.compact_available(B, L, l) == (L == 4096)
+        jp = JParams(k=5, l=l, density=density, max_read_len=L, length_bins=(),
+                     max_minimizers=cap)
+        codes, lens = _rows(L + 1, B, L, l, density)
+        jsb = jsd.seed_batch(jnp.asarray(codes), jnp.asarray(lens), jp, cap)
+        tsb = sd.seed_batch(torch.from_numpy(codes), torch.from_numpy(lens),
+                            params_from_jax(jp), cap, seeding="kernel")
+        compaction = L == 4096
+        rows = np.setdiff1d(np.arange(B), [SAT_ROW, HALO_ROW] if compaction else [])
+        for field in sd.SeedBatch._fields:
+            got = getattr(tsb, field).numpy()[rows]
+            want = np.asarray(getattr(jsb, field))[rows]
+            np.testing.assert_array_equal(got, want.view(got.dtype), err_msg=field)
+        assert bool(tsb.overflow[SAT_ROW]) == compaction
+        assert bool(tsb.overflow[HALO_ROW]) == compaction
+
+
+def test_shape_guards_take_any_row_count():
+    assert cs.compact_available(40, 4096, 31)
+    assert cs.nthash_sel_available(40, 4000, 31)
+    assert cs.compact_available(1, 2048, 4) and cs.nthash_sel_available(1, 5, 32)
+    assert not cs.compact_available(40, 4000, 31)  # whole 2048-lane blocks
+    assert not cs.compact_available(40, 1 << 16, 31)  # 16-bit start/end packing
+    assert not cs.nthash_sel_available(1 << 16, 4000, 31)
+    assert not cs.nthash_sel_available(40, 4000, 33)
+
+
 def test_hpc_compact_matches_jax():
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 5, (8, 600)).astype(np.uint8)
@@ -160,3 +197,99 @@ def test_wrappers_reject_bad_shapes():
     assert cs.block_cap(JParams().hash_threshold) == jps.block_cap(JParams().hash_threshold)
     assert cs.block_cap(JParams(density=0.05).hash_threshold) == jps.block_cap(
         JParams(density=0.05).hash_threshold)
+
+
+
+def _rol(x, r):
+    r %= 32
+    return x if r == 0 else ((x << np.uint32(r)) | (x >> np.uint32(32 - r))).astype(np.uint32)
+
+
+def _roll(code_at, code_in, starts, l, run, lookup):
+    """The kernels' rolling ntHash (csrc/rolling_nthash.cuh) in numpy: one run
+    of `run` windows from each of `starts`. code_at(starts, i) gives the code
+    at run-local index i (the warm-up and out-codes), code_in(starts, m) the
+    in-code of window m (index m + l - 1); lookup(table, codes) the seeds.
+    Returns fwd, rev and invalid, each [len(starts), run]."""
+    S, R = SEED32.astype(np.uint32), SEED32C.astype(np.uint32)
+    s_out, r_in = _rol(S, l - 1), _rol(R, l - 1)
+    p = np.zeros(starts.size, np.uint32)
+    q = np.zeros_like(p)
+    lastbad = np.full(starts.size, -1)
+    for i in range(l - 1):  # warm-up: P, Q over the run's first l - 1 codes
+        c = code_at(starts, i)
+        p = _rol(p, 1) ^ lookup(S, c)
+        q ^= _rol(lookup(R, c), i)
+        lastbad = np.where(c >= INVALID, i, lastbad)
+    fwd, rev, bad = (np.zeros((starts.size, run), t) for t in (np.uint32, np.uint32, bool))
+    for m in range(run):
+        cin, cout = code_in(starts, m), code_at(starts, m)
+        f = _rol(p, 1) ^ lookup(S, cin)
+        r = q ^ lookup(r_in, cin)
+        lastbad = np.where(cin >= INVALID, m + l - 1, lastbad)
+        fwd[:, m], rev[:, m], bad[:, m] = f, r, lastbad >= m
+        p = f ^ lookup(s_out, cout)
+        q = _rol(r ^ lookup(R, cout), 31)  # ror by 1
+    return fwd, rev, bad
+
+
+@pytest.mark.parametrize("l", [4, 17, 31, 32])
+def test_rolling_recurrence_matches_window_hashes(l):
+    """The rolling recurrence reproduces window_hashes at every position,
+    windows past the end included, from runs started at every offset, when
+    codes are looked up clamped to INVALID (seed 0) as the plain version does;
+    with the kernels' lookup by the low two bits it reproduces them at every
+    valid window, and invalid everywhere. The kernels' word reads (aligned
+    out-codes, funnel-shifted in-codes) are replayed from runs that start on
+    word boundaries, as theirs do."""
+    rng = np.random.default_rng(l)
+    n = 300
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    codes[40:45] = INVALID
+    codes[100] = INVALID
+    codes[160:200] = INVALID
+    codes[230] = 7
+    codes[250] = 200
+    fwd_w, rev_w, bad_w = cs.window_hashes(torch.from_numpy(codes)[None], l)
+    want = (fwd_w[0].numpy().view(np.uint32), rev_w[0].numpy().view(np.uint32),
+            bad_w[0].numpy())
+    ext = np.concatenate([codes, np.full(128, INVALID, np.uint8)])  # past the end
+    words = ext.view("<u4")
+
+    def exact(table, c):
+        return np.where(c >= INVALID, np.uint32(0), table[c & 3])
+
+    def low_bits(table, c):
+        return table[c & 3]
+
+    def code_at(s, i):
+        return ext[s + i]
+
+    def code_in(s, m):
+        return ext[s + m + l - 1]
+
+    def word_at(s, i):
+        return ((words[s // 4 + i // 4] >> np.uint32(8 * (i % 4))) & 0xFF).astype(np.uint8)
+
+    def word_in(s, m):
+        q0, sh0 = (l - 1) // 4, ((l - 1) % 4) * 8
+        g, b = divmod(m, 4)
+        lo = words[s // 4 + q0 + g].astype(np.uint64)
+        hi = words[s // 4 + q0 + g + 1].astype(np.uint64)
+        iw = ((hi << np.uint64(32)) | lo) >> np.uint64(sh0)
+        return ((iw >> np.uint64(8 * b)) & np.uint64(0xFF)).astype(np.uint8)
+
+    cases = [(code_at, code_in, 1, exact), (code_at, code_in, 1, low_bits),
+             (word_at, word_in, 4, low_bits)]
+    for run in (16, 32):
+        for at, cin, step, lookup in cases:
+            starts = np.arange(0, n, step)
+            pos = starts[:, None] + np.arange(run)[None, :]
+            inside = pos < n
+            p_in = np.minimum(pos, n - 1)
+            fwd, rev, bad = _roll(at, cin, starts, l, run, lookup)
+            np.testing.assert_array_equal(bad[inside], want[2][p_in][inside])
+            check = inside if lookup is exact else inside & ~bad
+            assert check.sum() > n // step
+            np.testing.assert_array_equal(fwd[check], want[0][p_in][check])
+            np.testing.assert_array_equal(rev[check], want[1][p_in][check])

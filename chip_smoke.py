@@ -15,13 +15,26 @@ Phases, each timed on its own line:
      the operations bound (counted from the run's data);
   4. golden example: example/'s genome and 100 reads regenerated with the
      port's simulator, mapped on the card, PAF equal to example/expected.paf;
-  5. main path at a realistic size: a 16 Mb genome indexed on the card, 2048
-     simulated 24 kb HiFi reads plus 32 reads of 40-60 kb (the 64 kb bin),
-     mapped through Mapper; both kernels launched, the PAF set equal to the
-     same run with the plain versions, 0 wrong and >= 99% of reads at Q60;
-     then 300 of those reads and the 32 long ones mapped again with
-     batch_size=100 (no multiple of 32): both kernels launched, the PAF set
-     equal to the batch-256 run's over those reads.
+  5. main path at a realistic size: a 16 Mb genome indexed on the card by
+     the resident build, 2048 simulated 24 kb HiFi reads plus 32 reads of
+     40-60 kb (the 64 kb bin), mapped through Mapper; both kernels launched,
+     the index slots and the PAF set equal to the same run with the plain
+     versions, 0 wrong and >= 99% of reads at Q60; the host build gives the
+     same unique count and the same probe answers on every key of its table
+     and on 1 M random keys; both builds timed; then 300 of those reads and
+     the 32 long ones mapped again with batch_size=100 (no multiple of 32):
+     both kernels launched, the PAF set equal to the batch-256 run's over
+     those reads;
+  6. an index at chromosome scale: one 248,956,422-base contig (the length of
+     GRCh38 chr1), built by the resident build across 64 Mb segments and by
+     the host build: equal unique counts, equal probe answers on 1 M keys of
+     the host table and 1 M random keys; both times and peak device memory;
+  7. the command line on the card, over phase 4's genome and reads:
+     --save-index then --load-index give a byte-identical PAF equal to
+     example/expected.paf; --read-stats writes one line per read, equal to
+     Mapper.map_reads(stats=) with the kernels (which launch the compaction
+     kernel for the stats) and with the plain versions; --shard 0/2 and 1/2
+     together give the whole PAF.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -33,7 +46,10 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+T_START = time.perf_counter()
 
 import numpy as np
 import torch
@@ -41,13 +57,22 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from mapquik_tpu_torch import cli  # noqa: E402
 from mapquik_tpu_torch.eval.mapeval import evaluate_paf  # noqa: E402
 from mapquik_tpu_torch.eval.simulate import markov_genome, simulate_reads  # noqa: E402
+from mapquik_tpu_torch.index import build as ib  # noqa: E402
+from mapquik_tpu_torch.index import device_build as db  # noqa: E402
+from mapquik_tpu_torch.index.hashtable import probe_hash  # noqa: E402
+from mapquik_tpu_torch.index.lookup import ProbeResult  # noqa: E402
+from mapquik_tpu_torch.io.fastx import write_fasta  # noqa: E402
 from mapquik_tpu_torch.ops import cuda_seeding as cs  # noqa: E402
 from mapquik_tpu_torch.ops import seeding as sd  # noqa: E402
 from mapquik_tpu_torch.ops.pipeline import Mapper  # noqa: E402
+from mapquik_tpu_torch.ops.stats import StatsWriter  # noqa: E402
 from mapquik_tpu_torch.params import Params  # noqa: E402
 
+DEV = "cuda"  # the device of every phase
+CHR1_LEN = 248_956_422  # GRCh38 chr1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # INT32 lanes per SM per clock (NVIDIA Hopper white paper)
 TPU_KERNELS = "mapquik_tpu/ops/pallas_seeding.py"
@@ -263,6 +288,181 @@ def long_reads(genome, n, seed):
     return out
 
 
+def synced(fn):
+    """(fn(), seconds) with the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def resident_build(genome, p):
+    """(index, seconds, stages) of a synchronized resident build. The stages
+    come from the build's progress messages, each sent after a host read
+    that waits for the card: host preparation (encoding, window plan), then
+    extraction (uploads, gathers, seeding, ownership; ends at the flag read),
+    then dedup and placement (ends at the count read), then materialize."""
+    marks = []
+
+    def log(msg):
+        marks.append((msg.split(" ", 1)[0], time.perf_counter()))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index, _ = ib.build_index(genome, p, device=DEV, verbose=log)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if ib.LAST_BUILD["path"] != "resident":
+        raise AssertionError("the index was not built by the resident build")
+    first = {}
+    for word, t in marks:
+        first.setdefault(word, t)
+    cut = [t0, first["device-extracting"], first["dispatched"], first["device"], t1]
+    names = ("host prep", "extraction", "dedup + placement", "materialize")
+    return index, t1 - t0, {n: b - a for n, a, b in zip(names, cut, cut[1:])}
+
+
+def stage_text(stages) -> str:
+    return ", ".join(f"{n} {v:.3f} s" for n, v in stages.items())
+
+
+def stored_keys(index):
+    """(h1, h2) of the stored slots of a table, as int32 tensors."""
+    pairs = index.keys.reshape(-1, 2)
+    stored = ~((pairs[:, 0] == -1) & (pairs[:, 1] == -1))
+    return pairs[stored, 0], pairs[stored, 1]
+
+
+def check_same_answers(resident, host, n_sample: int, n_random: int, seed: int) -> str:
+    """The resident and host tables hold the same keys: equal unique counts,
+    and probe_hash gives the same hits, and the same payload at every hit, on
+    n_sample keys of the host table (all of them if n_sample is None) and on
+    n_random random keys. A miss reads slot 0's payload, which depends on the
+    layout, so payloads are compared at hits only."""
+    if resident.n != host.n:
+        raise AssertionError(f"resident build has {resident.n} unique k-min-mers, "
+                             f"host build {host.n}")
+    h1, h2 = stored_keys(host)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    if n_sample is not None:
+        take = torch.randint(0, h1.shape[0], (n_sample,), generator=gen, device=DEV)
+        h1, h2 = h1[take], h2[take]
+    r1, r2 = (torch.randint(-2**31, 2**31, (n_random,), generator=gen, device=DEV,
+                            dtype=torch.int32) for _ in range(2))
+    q1, q2 = torch.cat([h1, r1]), torch.cat([h2, r2])
+    a, b = probe_hash(resident, q1, q2), probe_hash(host, q1, q2)
+    if not torch.equal(a.hit, b.hit):
+        raise AssertionError("resident and host tables differ in which keys they hold")
+    for field in ProbeResult._fields[1:]:
+        if not torch.equal(getattr(a, field)[a.hit], getattr(b, field)[b.hit]):
+            raise AssertionError(f"resident and host tables differ in {field}")
+    n_hit = int(a.hit.sum())
+    if not bool(a.hit[: h1.shape[0]].all()):
+        raise AssertionError("a key of the host table was not found")
+    return (f"{resident.n} unique k-min-mers in both; probe answers equal on "
+            f"{h1.shape[0]} host-table keys (all hit) and {n_random} random keys "
+            f"({n_hit - h1.shape[0]} hit)")
+
+
+def chromosome_index(card: str) -> None:
+    """Phase 6: one contig of GRCh38 chr1's length through both builds."""
+    t = time.perf_counter()
+    chrom = markov_genome(CHR1_LEN, seed=14, n_contigs=1)
+    print(f"input: one contig of {CHR1_LEN} bases, made in {time.perf_counter() - t:.2f} s")
+    p = Params()
+    segments = []
+    real_segment = db._segment
+
+    def spy(*args):
+        out = real_segment(*args)
+        segments.append(out[1])
+        return out
+
+    db._segment = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cs.reset_launches()
+        res, t_res, stages = resident_build(chrom, p)
+        peak_res = torch.cuda.max_memory_allocated()
+    finally:
+        db._segment = real_segment
+    if len(segments) < 4 or segments.count(db.MAX_SEG) < 3:
+        raise AssertionError(f"expected several {db.MAX_SEG}-base segments, got {segments}")
+    launches = dict(cs.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    (host, _), t_host = synced(lambda: ib.build_index(chrom, p, device=DEV, resident=False))
+    peak_host = torch.cuda.max_memory_allocated()
+    print(f"resident build: {t_res:.3f} s ({stage_text(stages)}), {len(segments)} segments "
+          f"of {segments} bases, launches {launches}, peak device memory "
+          f"{peak_res / 2**30:.3f} GiB, on {card}")
+    print(f"host build: {t_host:.3f} s, peak device memory {peak_host / 2**30:.3f} GiB, "
+          f"on {card}")
+    print(check_same_answers(res, host, 1 << 20, 1 << 20, seed=15))
+
+
+def cli_paths(genome, reads, expected) -> None:
+    """Phase 7: the command line's index-file, stats and shard paths."""
+    with tempfile.TemporaryDirectory() as d:
+        ref, rd, idx = (os.path.join(d, f) for f in ("g.fa", "r.fq", "idx.npz"))
+        write_fasta(ref, genome)
+        with open(rd, "w") as f:
+            for name, seq in reads:
+                f.write(f"@{name}\n{seq.decode()}\n+\n{'I' * len(seq)}\n")
+        base = [rd, "--reference", ref, "-k", "8", "-l", "16", "-d", "0.01", "-g", "100",
+                "--device", DEV]
+
+        def run(prefix, *extra, out=None):
+            if cli.main(base + ["-p", os.path.join(d, prefix), *extra]) != 0:
+                raise AssertionError(f"command line failed: {extra}")
+            return open(os.path.join(d, (out or prefix) + ".paf")).read()
+
+        saved = run("save", "--save-index", idx)
+        loaded = run("load", "--load-index", idx)
+        if saved != loaded:
+            raise AssertionError("--load-index gave another PAF than --save-index")
+        if sorted(saved.splitlines()) != expected:
+            raise AssertionError("command-line PAF differs from example/expected.paf")
+        print(f"--save-index / --load-index: byte-identical PAF, {len(expected)} lines equal "
+              f"to example/expected.paf")
+
+        if run("stats", "--read-stats") != saved:
+            raise AssertionError("--read-stats changed the PAF")
+        stats = open(os.path.join(d, "stats.read_stats")).read()
+        if len(stats.splitlines()) != len(reads):
+            raise AssertionError("--read-stats did not write one line per read")
+        p = cli.params_from_args(cli.build_argparser().parse_args(base))
+        kern = Mapper(genome, p, device=DEV)
+        plain = Mapper.from_index(kern.index, kern.meta, p, device=DEV, seeding="plain")
+        cs.reset_launches()
+        list(kern.map_reads(reads))
+        without = cs.LAUNCHES["seed_select_compact"]
+        got = {}
+        for name, m in (("kernel", kern), ("plain", plain)):
+            w = StatsWriter(os.path.join(d, name))
+            cs.reset_launches()
+            list(m.map_reads(reads, stats=w))
+            w.close()
+            got[name] = (open(w.path).read(), cs.LAUNCHES["seed_select_compact"])
+        if not got["kernel"][0] == got["plain"][0] == stats:
+            raise AssertionError("read stats differ between the kernels, the plain "
+                                 "versions and the command line")
+        if got["kernel"][1] <= without or got["plain"][1] != 0:
+            raise AssertionError(f"seed_select_compact launches: {without} mapping alone, "
+                                 f"{got['kernel'][1]} with stats")
+        print(f"--read-stats: {len(reads)} lines, equal with the kernels and the plain "
+              f"versions; seed_select_compact launches {without} without stats, "
+              f"{got['kernel'][1]} with")
+
+        shards = []
+        for i in (0, 1):
+            shards += run("sh", "--shard", f"{i}/2", out=f"sh.shard{i}of2").splitlines()
+        if sorted(shards) != sorted(saved.splitlines()):
+            raise AssertionError("--shard 0/2 and 1/2 do not reassemble the whole PAF")
+        print(f"--shard 0/2 + 1/2: {len(shards)} PAF lines, the whole file's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -315,7 +515,7 @@ def main() -> int:
         reads = simulate_reads(genome, 100, mean_len=24_000, accuracy=0.999, seed=20230128)
         p_ex = Params.auto(k=8, l=16, density=0.01, g=100)
         cs.reset_launches()
-        lines = sorted(Mapper(genome, p_ex, device="cuda").map_reads(reads))
+        lines = sorted(Mapper(genome, p_ex, device=DEV).map_reads(reads))
         print(f"launches: {dict(cs.LAUNCHES)}")
         with open(os.path.join(ROOT, "example", "expected.paf")) as f:
             expected = sorted(f.read().strip().split("\n"))
@@ -324,6 +524,7 @@ def main() -> int:
                 f"example PAF differs from example/expected.paf "
                 f"({len(set(lines) ^ set(expected))} lines differ)")
         print(f"example: {len(lines)} PAF lines equal to example/expected.paf")
+        example = (genome, reads, expected)
 
     with phase("5 main path"):
         t = time.perf_counter()
@@ -336,15 +537,18 @@ def main() -> int:
         torch.cuda.synchronize()
         cs.reset_launches()
         t = time.perf_counter()
-        mapper = Mapper(genome, p, device="cuda")
+        mapper = Mapper(genome, p, device=DEV)
         torch.cuda.synchronize()
         t_index = time.perf_counter() - t
+        if ib.LAST_BUILD["path"] != "resident":
+            raise AssertionError("the main path's index was not built by the resident build")
         t = time.perf_counter()
         lines = list(mapper.map_reads(reads))
         torch.cuda.synchronize()
         t_map = time.perf_counter() - t
         launches = dict(cs.LAUNCHES)
-        print(f"index: 16 Mb, {mapper.n_unique} unique k-min-mers in {t_index:.3f} s on {card}")
+        print(f"index: 16 Mb, {mapper.n_unique} unique k-min-mers in {t_index:.3f} s "
+              f"(resident build, first call) on {card}")
         print(f"map: {len(reads)} reads in {t_map:.3f} s, {len(reads) / t_map:.1f} reads/s "
               f"on {card} (host loop, first call, includes host packing and PAF output)")
         print(f"launches on the main path: {launches}")
@@ -354,13 +558,24 @@ def main() -> int:
                 raise AssertionError(f"{name} was not launched on the main path")
 
         t = time.perf_counter()
-        plain = Mapper(genome, p, device="cuda", seeding="plain")
+        plain = Mapper(genome, p, device=DEV, seeding="plain")
         plain_lines = list(plain.map_reads(reads))
         torch.cuda.synchronize()
         print(f"plain versions: index + map in {time.perf_counter() - t:.3f} s")
+        if ib.LAST_BUILD["path"] != "resident":
+            raise AssertionError("the plain-version index was not built by the resident build")
         if not (torch.equal(plain.index.keys, mapper.index.keys)
                 and torch.equal(plain.index.pay, mapper.index.pay)):
-            raise AssertionError("index built with the kernels differs from the plain build")
+            raise AssertionError("resident index built with the kernels differs from the "
+                                 "resident index built with the plain versions")
+        print("resident index: keys and pay equal with the kernels and the plain versions")
+        (host, _), t_host = synced(lambda: ib.build_index(genome, p, device=DEV,
+                                                          resident=False))
+        _, t_res2, stages = resident_build(genome, p)
+        print(check_same_answers(mapper.index, host, None, 1 << 20, seed=16))
+        print(f"index build 16 Mb (synchronized): resident {t_index:.3f} s first call, "
+              f"{t_res2:.3f} s second call ({stage_text(stages)}); host {t_host:.3f} s; "
+              f"on {card}")
         if sorted(lines) != sorted(plain_lines):
             raise AssertionError(
                 f"PAF with kernels differs from PAF with plain versions "
@@ -374,7 +589,7 @@ def main() -> int:
         sub = reads[:300] + reads[-32:]
         names = {name for name, _ in sub}
         small = Mapper.from_index(mapper.index, mapper.meta, Params(batch_size=100),
-                                  device="cuda")
+                                  device=DEV)
         torch.cuda.synchronize()
         cs.reset_launches()
         sub_lines = list(small.map_reads(sub))
@@ -390,8 +605,16 @@ def main() -> int:
                 f"PAF at batch_size=100 differs from the batch-256 run "
                 f"({len(set(sub_lines) ^ set(want))} lines differ)")
         print(f"batch_size=100: {len(sub_lines)} PAF lines equal to the batch-256 run's")
+        del mapper, plain, host, small
 
-    print(f"total {time.perf_counter() - t_all:.2f} s")
+    with phase("6 chromosome-scale index"):
+        chromosome_index(card)
+
+    with phase("7 command line"):
+        cli_paths(*example)
+
+    print(f"total {time.perf_counter() - t_all:.2f} s of phases, "
+          f"{time.perf_counter() - T_START:.2f} s since the script started")
     order = ["seed_select_compact", "nthash_sel"]
     print(json.dumps({"kernels": [kernels[n] for n in order]}))
     print(smi)

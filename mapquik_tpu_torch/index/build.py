@@ -1,6 +1,9 @@
-"""Reference index construction (host path): windowed extraction on the
-device + host sort/dedup + host hash-table placement (counterpart of
-`mapquik_tpu/index/build.py`).
+"""Reference index construction (counterpart of `mapquik_tpu/index/build.py`).
+
+`build_index` takes the resident build (index/device_build.py) on CUDA and
+the host path below on the CPU; the host path is also the fallback when the
+resident build declines. Host path: windowed extraction on the device, then
+host sort/dedup and host hash-table placement.
 
   - Window cores are disjoint; each window scans its core plus a right halo so
     k-min-mers spanning the boundary are seen by their owning window.
@@ -18,6 +21,7 @@ a doubled halo.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -32,6 +36,9 @@ from .hashtable import HashIndex, build_hash_index
 from .lookup import dedup_host
 
 _BATCH_WINDOWS = 256  # windows per extraction batch
+
+LAST_BUILD = {"path": None}
+"""Which path built the last index: "resident" or "host"."""
 
 
 @dataclass
@@ -77,21 +84,26 @@ class _HaloDrop(Exception):
     """A halo-truncated window dropped an owned k-min-mer (span > ref_halo)."""
 
 
-def extract_contig_kminmers(codes: np.ndarray, p: Params, device, seeding: str = "kernel"):
+def extract_contig_kminmers(codes: np.ndarray, p: Params, device, seeding: str = "kernel",
+                            verbose=None):
     """All k-min-mers of one contig as host arrays (h1, h2 uint32, start, end,
     offset int64, rev bool), ordered and numbered as whole-contig extraction.
     Retries with a doubled halo if drop detection fires."""
     while True:
         try:
-            return _extract_contig_once(codes, p, device, seeding)
+            return _extract_contig_once(codes, p, device, seeding, verbose)
         except _HaloDrop:
             p = dataclasses.replace(
                 p, ref_halo=p.ref_halo * 2, ref_window=max(p.ref_window, p.ref_halo * 2),
             )
+            if verbose:
+                verbose(f"halo drop detected: retrying contig with ref_halo={p.ref_halo}")
 
 
-def _extract_contig_once(codes: np.ndarray, p: Params, device, seeding: str):
+def _extract_contig_once(codes: np.ndarray, p: Params, device, seeding: str, verbose):
     wins = plan_windows(codes, p)
+    if verbose:
+        verbose(f"extracting contig ({codes.shape[0]} bp, {len(wins)} windows)")
     if not wins:
         z32 = np.zeros(0, dtype=np.uint32)
         zi = np.zeros(0, dtype=np.int64)
@@ -146,10 +158,28 @@ def _extract_contig_once(codes: np.ndarray, p: Params, device, seeding: str):
 
 
 def build_index(contigs: Sequence[Tuple[str, bytes]], p: Params, device=None,
-                seeding: str = "kernel") -> Tuple[HashIndex, RefMeta]:
+                seeding: str = "kernel", resident=None, verbose=None
+                ) -> Tuple[HashIndex, RefMeta]:
     """Hash index of (name, seq) contigs on `device` (CUDA unless "cpu");
-    `seeding` is one of ops.seeding.SEEDING."""
+    `seeding` is one of ops.seeding.SEEDING.
+
+    resident: build on the device (index/device_build.py) when True, on the
+    host path when False; None takes the resident build on CUDA and the host
+    path on the CPU. A resident build that declines (a seed cap clipped or a
+    halo dropped a k-min-mer) falls back to the host path with a line on
+    stderr. verbose: a callback taking progress messages."""
     device = resolve_device(device)
+    if resident is None:
+        resident = device.type == "cuda"
+    if resident:
+        from .device_build import build_index_resident
+
+        got = build_index_resident(contigs, p, device, seeding, verbose)
+        if got is not None:
+            LAST_BUILD["path"] = "resident"
+            return got
+        print("resident index build declined (seed cap clipped, halo drop or no "
+              "windows); building on the host path", file=sys.stderr)
     names: List[str] = []
     lengths: List[int] = []
     cols = {k: [] for k in ("h1", "h2", "rid", "start", "end", "off", "rc")}
@@ -157,7 +187,7 @@ def build_index(contigs: Sequence[Tuple[str, bytes]], p: Params, device=None,
         names.append(name)
         codes = encode_fast(seq)
         lengths.append(codes.shape[0])
-        h1, h2, st, en, off, rv = extract_contig_kminmers(codes, p, device, seeding)
+        h1, h2, st, en, off, rv = extract_contig_kminmers(codes, p, device, seeding, verbose)
         cols["h1"].append(h1)
         cols["h2"].append(h2)
         cols["rid"].append(np.full(h1.shape[0], rid, dtype=np.int64))
@@ -176,4 +206,5 @@ def build_index(contigs: Sequence[Tuple[str, bytes]], p: Params, device=None,
         off.astype(np.int32), rc_, device,
     )
     meta = RefMeta(names=names, lengths=np.asarray(lengths, dtype=np.int64))
+    LAST_BUILD["path"] = "host"
     return index, meta

@@ -48,12 +48,22 @@ def _buckets(h1: np.ndarray, h2: np.ndarray, mask: int):
     return b1.astype(np.int64), b2.astype(np.int64)
 
 
+def key_lane(slot_of):
+    """Flat lane of slot s's h1 within the flattened keys array (numpy or torch)."""
+    return (slot_of >> 6) * 128 + (slot_of & 63) * 2
+
+
+def pay_lane(slot_of):
+    """Flat lane of slot s's ridrc within the flattened pay array (numpy or torch)."""
+    return (slot_of >> 5) * 128 + (slot_of & 31) * 4
+
+
 def pack_slots(S: int, slot_of, h1, h2, rid, start, end, offset, rc):
     """Grouped-row (keys, pay) assembly from flat placements (numpy)."""
     keys = np.full((S // 8) * 128, _EMPTY_I, dtype=np.int32)
     pay = np.zeros((S * BUCKET // 32) * 128, dtype=np.int32)
-    kb = (slot_of >> 6) * 128 + (slot_of & 63) * 2
-    pb = (slot_of >> 5) * 128 + (slot_of & 31) * 4
+    kb = key_lane(slot_of)
+    pb = pay_lane(slot_of)
     keys[kb] = h1.astype(np.int64).astype(np.int32)
     keys[kb + 1] = h2.astype(np.int64).astype(np.int32)
     pay[pb] = (np.asarray(rid, np.int32) << 1) | np.asarray(rc, np.int32)

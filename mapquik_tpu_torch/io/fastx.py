@@ -1,5 +1,5 @@
-"""FASTA/FASTQ parsing and writing, plain or gzip (format sniffed from the
-file name, multi-line FASTA allowed, reads parsed record-wise)."""
+"""FASTA/FASTQ parsing and writing, plain, gzip or lz4 (format sniffed from
+the file name, multi-line FASTA allowed, reads parsed record-wise)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,20 @@ from typing import Iterator, Tuple
 def _open(path: str):
     if path.endswith(".gz"):
         return gzip.open(path, "rb")
+    if path.endswith(".lz4"):
+        from . import lz4frame
+
+        if lz4frame.available():
+            return lz4frame.open_lz4(path)
+        try:
+            import lz4.frame  # type: ignore
+
+            return lz4.frame.open(path, "rb")
+        except ImportError as e:
+            raise RuntimeError(
+                "lz4-compressed input requires liblz4 or the 'lz4' package; "
+                "decompress the file first"
+            ) from e
     return open(path, "rb")
 
 

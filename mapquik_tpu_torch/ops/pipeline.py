@@ -23,6 +23,7 @@ from ..params import Params, _seed_cap
 from .chaining import MapResult, chain_and_select_v2, project_coords
 from .matching import find_matches
 from .seeding import seed_batch
+from .stats import read_stats_batch
 
 
 def map_batch(codes: torch.Tensor, lengths: torch.Tensor, index: HashIndex,
@@ -76,12 +77,14 @@ class Mapper:
     batches on `device` (CUDA unless "cpu").
 
     seeding="plain" runs the seeding kernels' plain PyTorch versions in place
-    of the CUDA kernels (for comparing the two on the card); see SEEDING."""
+    of the CUDA kernels (for comparing the two on the card); see SEEDING.
+    resident and verbose are passed on to build_index."""
 
     def __init__(self, contigs: Sequence[Tuple[str, bytes]], p: Params, device=None,
-                 seeding: str = "kernel"):
+                 seeding: str = "kernel", resident=None, verbose=None):
         device = resolve_device(device)
-        index, meta = build_index(contigs, p, device=device, seeding=seeding)
+        index, meta = build_index(contigs, p, device=device, seeding=seeding,
+                                  resident=resident, verbose=verbose)
         self._attach(index, meta, p, device, seeding)
 
     @classmethod
@@ -113,7 +116,7 @@ class Mapper:
         return flatten_map_result(res).cpu().numpy()
 
     def _map_items(self, items: List[Tuple[str, np.ndarray]], Lb: int, cap0: int,
-                   B: int) -> List[str]:
+                   B: int, stats) -> List[str]:
         names = [nm for nm, _ in items]
         codes = np.full((B, Lb), 4, dtype=np.uint8)
         lens = np.zeros(B, dtype=np.int32)
@@ -121,6 +124,13 @@ class Mapper:
             codes[i, : c.shape[0]] = c
             lens[i] = c.shape[0]
         flat = self._map_host(codes, lens, cap0, self.seeding)
+        if stats is not None:
+            # at the batch's first cap, before any overflow retry
+            loci = read_stats_batch(
+                torch.from_numpy(codes).to(self.device), torch.from_numpy(lens).to(self.device),
+                self.index, self.p, cap0, self.seeding,
+            )
+            stats.write_batch(names, loci.cpu().numpy()[: len(items)])
         # overflow retry: a clipped read's mapping may be wrong, so clipped reads
         # are mapped again at doubled caps until none overflow; from attempt 2
         # (or at the bin's full width) on the exact path, since the clip may be
@@ -143,14 +153,16 @@ class Mapper:
         return format_paf(names, lens[: len(items)].tolist(), unflatten_map_result(flat),
                           self.meta)
 
-    def map_reads(self, reads: Iterable[Tuple[str, bytes]]) -> Iterator[str]:
+    def map_reads(self, reads: Iterable[Tuple[str, bytes]], stats=None) -> Iterator[str]:
         """Yield PAF lines for mapped reads (unmapped reads are skipped).
 
         Reads go to the smallest length bin that fits them (Params.length_bins,
         then max_read_len); a bin's batch is mapped when it holds
         Params.batch_size reads, and the partial batches at the end of the stream. Reads longer
         than max_read_len are truncated with a warning. A read's sequence may
-        be bytes/str or pre-encoded uint8 codes."""
+        be bytes/str or pre-encoded uint8 codes. With `stats` (an
+        ops.stats.StatsWriter), each read's candidate-locus count is written
+        too, one line per read, mapped or not."""
         p = self.p
         B = p.batch_size
         bins = sorted(set(int(b) for b in p.length_bins if b < p.max_read_len))
@@ -173,8 +185,8 @@ class Mapper:
             bi = next(i for i, Lb in enumerate(bins) if codes.shape[0] <= Lb)
             pending[bi].append((name, codes))
             if len(pending[bi]) == B:
-                yield from self._map_items(pending[bi], bins[bi], caps[bi], B)
+                yield from self._map_items(pending[bi], bins[bi], caps[bi], B, stats)
                 pending[bi] = []
         for bi, items in enumerate(pending):
             if items:
-                yield from self._map_items(items, bins[bi], caps[bi], B)
+                yield from self._map_items(items, bins[bi], caps[bi], B, stats)

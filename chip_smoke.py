@@ -6,7 +6,8 @@
 Phases, each timed on its own line:
   1. environment: the card, its power limit and maximum SM clock, torch and
      CUDA versions;
-  2. build both seeding kernels with nvcc (registers and spills printed);
+  2. build both seeding kernels with nvcc (registers and spills printed), and
+     the host parser and packer (csrc/fastx.cpp) with g++, each timed;
   3. each kernel against its plain PyTorch version on the card, bit for bit:
      at the main path's shapes, including rows made to raise both compaction
      markers, and on random rows at B = 100 and 256 with l = 4, 31 and 32
@@ -17,7 +18,12 @@ Phases, each timed on its own line:
      port's simulator, mapped on the card, PAF equal to example/expected.paf;
   5. main path at a realistic size: a 16 Mb genome indexed on the card by
      the resident build, 2048 simulated 24 kb HiFi reads plus 32 reads of
-     40-60 kb (the 64 kb bin), mapped through Mapper; both kernels launched,
+     40-60 kb (the 64 kb bin), mapped through Mapper's streaming map_reads (and
+     once more: reads/s of that steady call, its host seconds per batch in
+     feeding and packing, in finalizing and formatting, and waiting on
+     events, its device ms per batch from CUDA events, and the bytes it
+     uploaded per base; then a third call under torch.profiler for the
+     card's busy time and launches per batch); both kernels launched,
      the index slots and the PAF set equal to the same run with the plain
      versions, 0 wrong and >= 99% of reads at Q60; the host build gives the
      same unique count and the same probe answers on every key of its table
@@ -34,13 +40,22 @@ Phases, each timed on its own line:
      example/expected.paf; --read-stats writes one line per read, equal to
      Mapper.map_reads(stats=) with the kernels (which launch the compaction
      kernel for the stats) and with the plain versions; --shard 0/2 and 1/2
-     together give the whole PAF.
+     together give the whole PAF; the reads as FASTQ.gz, read by the native
+     parser, give the PAF of the same reads through the Python parser;
+  5b. one dispatch of the streaming Mapper (uploads, map_batch_packed2, read
+     stats, the copies of the results) under
+     torch.cuda.set_sync_debug_mode("error"): no op may wait for the card;
+  5c. ring stress: 3072 reads of about 10 kb (12 batches of 256, three times
+     the upload ring's slots) streamed over phase 5's index, the PAF equal,
+     line for line, to the same reads mapped one batch at a time with the
+     card synchronized after each batch.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import statistics
@@ -64,12 +79,14 @@ from mapquik_tpu_torch.index import build as ib  # noqa: E402
 from mapquik_tpu_torch.index import device_build as db  # noqa: E402
 from mapquik_tpu_torch.index.hashtable import probe_hash  # noqa: E402
 from mapquik_tpu_torch.index.lookup import ProbeResult  # noqa: E402
-from mapquik_tpu_torch.io.fastx import write_fasta  # noqa: E402
+from mapquik_tpu_torch.io import native  # noqa: E402
+from mapquik_tpu_torch.io.fastx import iter_fastx, write_fasta  # noqa: E402
 from mapquik_tpu_torch.ops import cuda_seeding as cs  # noqa: E402
 from mapquik_tpu_torch.ops import seeding as sd  # noqa: E402
+from mapquik_tpu_torch.ops import pipeline  # noqa: E402
 from mapquik_tpu_torch.ops.pipeline import Mapper  # noqa: E402
 from mapquik_tpu_torch.ops.stats import StatsWriter  # noqa: E402
-from mapquik_tpu_torch.params import Params  # noqa: E402
+from mapquik_tpu_torch.params import Params, seed_cap  # noqa: E402
 
 DEV = "cuda"  # the device of every phase
 CHR1_LEN = 248_956_422  # GRCh38 chr1
@@ -455,12 +472,137 @@ def cli_paths(genome, reads, expected) -> None:
               f"versions; seed_select_compact launches {without} without stats, "
               f"{got['kernel'][1]} with")
 
+        gz = os.path.join(d, "r.fq.gz")
+        with open(rd, "rb") as f, gzip.open(gz, "wb") as g:
+            g.write(f.read())
+        used = []
+        real = native.iter_records
+        native.iter_records = lambda path: used.append(path) or real(path)
+        try:
+            if cli.main([gz] + base[1:] + ["-p", os.path.join(d, "gz")]) != 0:
+                raise AssertionError("command line failed on .fq.gz")
+        finally:
+            native.iter_records = real
+        via_native = open(os.path.join(d, "gz.paf")).read().splitlines()
+        via_python = list(kern.map_reads(iter_fastx(gz)))
+        if used != [gz] or via_native != via_python or sorted(via_native) != expected:
+            raise AssertionError("the .fq.gz read by the native parser gave another PAF than "
+                                 "the Python parser or example/expected.paf")
+        print(f".fq.gz through the native parser: {len(via_native)} PAF lines equal, line "
+              f"for line, to the same reads through the Python parser")
+
         shards = []
         for i in (0, 1):
             shards += run("sh", "--shard", f"{i}/2", out=f"sh.shard{i}of2").splitlines()
         if sorted(shards) != sorted(saved.splitlines()):
             raise AssertionError("--shard 0/2 and 1/2 do not reassemble the whole PAF")
         print(f"--shard 0/2 + 1/2: {len(shards)} PAF lines, the whole file's")
+
+
+def stream_report(prof, reads, seconds: float, card: str) -> str:
+    """One line of a map_reads call's StreamProfile."""
+    nb = prof.batches
+    bases = sum(len(s) for _, s in reads)
+    dev = prof.device_ms
+    return (
+        f"map, steady second call: {len(reads)} reads in {seconds:.3f} s, "
+        f"{len(reads) / seconds:.1f} reads/s on {card}; {nb} batches; host s per batch: "
+        f"feed + pack {(prof.feed_s + prof.pack_s) / nb:.5f} (feed {prof.feed_s / nb:.5f}, "
+        f"pack {prof.pack_s / nb:.5f}), dispatch {prof.dispatch_s / nb:.5f}, "
+        f"finalize + format {prof.finalize_s / nb:.5f}, waiting on events "
+        f"{prof.wait_s / nb:.5f}; device ms per batch (CUDA events) median "
+        f"{statistics.median(dev):.3f}, mean {statistics.mean(dev):.3f}, sum "
+        f"{sum(dev) / 1e3:.3f} s; uploaded {prof.n_bytes} bytes for {prof.n_positions} padded "
+        f"positions, {prof.n_bytes / prof.n_positions:.4f} bytes per padded base, "
+        f"{prof.n_bytes / bases:.4f} per read base")
+
+
+def device_busy(mapper, reads) -> str:
+    """One more map_reads call under torch.profiler: the card's busy time
+    (kernels and copies) and its kernel launches, per batch, and the five
+    kernels that take most of it. The call's wall time is not reported."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        list(mapper.map_reads(reads))
+        torch.cuda.synchronize()
+    nb = mapper.profile.batches
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = {e.key: (e.self_device_time_total / 1e3, e.count) for e in dev}
+    total = sum(ms for ms, _ in busy.values())
+    if total == 0:
+        return "device busy time per batch (torch.profiler): not measured (no device time)"
+    top = sorted(busy.items(), key=lambda kv: -kv[1][0])[:5]
+    return (f"device busy per batch (torch.profiler, kernels and copies): {total / nb:.3f} ms "
+            f"in {sum(n for _, n in busy.values()) / nb:.0f} launches; most: "
+            + "; ".join(f"{k[:60]} {ms / nb:.3f} ms x{n / nb:.0f}" for k, (ms, n) in top))
+
+
+class _LociSink:
+    """A stats writer that keeps the loci."""
+
+    def __init__(self):
+        self.loci = []
+
+    def write_batch(self, names, nb_loci):
+        self.loci += [int(x) for x in nb_loci[: len(names)]]
+
+
+def sync_free_dispatch(mapper, reads, lines, p) -> None:
+    """Phase 5b: one dispatch of 256 reads under sync debug mode "error", on a
+    fresh Mapper (a fresh upload ring) around phase 5's index."""
+    m = Mapper.from_index(mapper.index, mapper.meta, p, device=DEV)
+    B = p.batch_size
+    batch = [(name, seq, len(seq)) for name, seq in reads[:B]]
+    bins = sorted(b for b in p.length_bins if b < p.max_read_len) + [p.max_read_len]
+    L = next(Lb for Lb in bins if max(n for _, _, n in batch) <= Lb)
+    cap = min(p.max_minimizers, seed_cap(L, p.density, p.k))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = m._dispatch(batch, L, cap, B, with_stats=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sink = _LociSink()
+    got = m._finalize(inflight, sink)
+    names = {name for name, _, _ in batch}
+    want = [x for x in lines if x.split("\t", 1)[0] in names]
+    if sorted(got) != sorted(want) or len(sink.loci) != B:
+        raise AssertionError("the dispatch under sync debug mode gave another PAF")
+    print(f"one dispatch of {B} reads at L={L} (uploads, map_batch_packed2, read stats, "
+          f"result copies) under sync debug mode 'error': no synchronizing op; "
+          f"{len(got)} PAF lines equal to phase 5's")
+
+
+def ring_stress(mapper, genome, p, card) -> None:
+    """Phase 5c: three times the ring's slots of 256-read batches in one bin,
+    streamed, against the same batches mapped one at a time."""
+    t = time.perf_counter()
+    reads = simulate_reads(genome, 12 * p.batch_size, mean_len=10_000, accuracy=0.99, seed=17)
+    print(f"inputs: {len(reads)} reads, {sum(len(s) for _, s in reads)} bases, longest "
+          f"{max(len(s) for _, s in reads)}, made in {time.perf_counter() - t:.2f} s")
+    m = Mapper.from_index(mapper.index, mapper.meta, p, device=DEV)
+    streamed, t_stream = synced(lambda: list(m.map_reads(reads)))
+    L = min(p.length_bins)
+    n_slots = len(m.ring._rings[(p.batch_size, L)][0])
+    n_batches = m.profile.batches
+    if n_batches < 3 * n_slots or n_slots != pipeline.RING_SLOTS:
+        raise AssertionError(f"{n_batches} batches through {n_slots} ring slots")
+    one = []
+    t = time.perf_counter()
+    for i in range(0, len(reads), p.batch_size):
+        one += list(m.map_reads(reads[i : i + p.batch_size]))
+        torch.cuda.synchronize()
+    t_one = time.perf_counter() - t
+    if streamed != one:
+        raise AssertionError(f"streamed PAF differs from the batch-at-a-time PAF "
+                             f"({len(set(streamed) ^ set(one))} lines differ)")
+    print(f"ring stress: {n_batches} batches of {p.batch_size} through {n_slots} "
+          f"ring slots at L={L}, {len(streamed)} PAF lines equal line for line to the "
+          f"batch-at-a-time run; streamed {t_stream:.3f} s, batch at a time with a sync "
+          f"after each {t_one:.3f} s, on {card}")
 
 
 def main() -> int:
@@ -486,11 +628,17 @@ def main() -> int:
               f"python {sys.version.split()[0]}, {torch.cuda.device_count()} device(s)")
 
     with phase("2 kernel build"):
+        t = time.perf_counter()
         reports = cs.build_kernels()
+        print(f"nvcc: {sorted(reports)} built in {time.perf_counter() - t:.2f} s")
         for name, log in reports.items():
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+        t = time.perf_counter()
+        lib, built = native.build()
+        print(f"g++: {native.SOURCE.name} -> {lib.name} "
+              f"{'built' if built else 'already built'} in {time.perf_counter() - t:.2f} s")
 
     kernels = {
         "seed_select_compact": {
@@ -550,8 +698,14 @@ def main() -> int:
         print(f"index: 16 Mb, {mapper.n_unique} unique k-min-mers in {t_index:.3f} s "
               f"(resident build, first call) on {card}")
         print(f"map: {len(reads)} reads in {t_map:.3f} s, {len(reads) / t_map:.1f} reads/s "
-              f"on {card} (host loop, first call, includes host packing and PAF output)")
+              f"on {card} (streaming Mapper, first call, includes host packing and PAF "
+              f"output)")
         print(f"launches on the main path: {launches}")
+        steady, t_steady = synced(lambda: list(mapper.map_reads(reads)))
+        if steady != lines:
+            raise AssertionError("a second map_reads call gave another PAF")
+        print(stream_report(mapper.profile, reads, t_steady, card))
+        print(device_busy(mapper, reads))
         for name, n in launches.items():
             kernels[name]["launches"] = n
             if n == 0:
@@ -605,6 +759,12 @@ def main() -> int:
                 f"PAF at batch_size=100 differs from the batch-256 run "
                 f"({len(set(sub_lines) ^ set(want))} lines differ)")
         print(f"batch_size=100: {len(sub_lines)} PAF lines equal to the batch-256 run's")
+
+    with phase("5b sync-free dispatch"):
+        sync_free_dispatch(mapper, reads, lines, p)
+
+    with phase("5c ring stress"):
+        ring_stress(mapper, genome, p, card)
         del mapper, plain, host, small
 
     with phase("6 chromosome-scale index"):

@@ -115,7 +115,13 @@ def main(argv=None) -> int:
         read_iter = lambda: iter_fastx_shard(args.reads, shard_i, shard_n)  # noqa: E731
         prefix = f"{prefix}.shard{shard_i}of{shard_n}"
     else:
-        read_iter = lambda: fastx.iter_fastx(args.reads)  # noqa: E731
+        def read_iter():
+            # the native parser (mmap or zlib, all cores, pre-encoded codes);
+            # .lz4 inputs, which it does not read, go through io/fastx.py
+            from .io import native
+
+            it = native.iter_records(args.reads)
+            return it if it is not None else fastx.iter_fastx(args.reads)
     if args.backend == "torch":
         from .index.serialize import load_index, params_key, save_index
         from .ops.pipeline import Mapper

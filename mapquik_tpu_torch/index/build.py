@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..oracle.pyref import encode_fast
-from ..ops.seeding import seed_batch
+from ..io.native import encode_any
+from ..ops.seeding import overflow_retries, seed_batch
 from ..params import Params
 from .hashtable import HashIndex, build_hash_index
 from .lookup import dedup_host
@@ -125,15 +125,10 @@ def _extract_contig_once(codes: np.ndarray, p: Params, device, seeding: str, ver
             lens[bi] = se - cs
         codes_d = torch.from_numpy(arr).to(device)
         lens_d = torch.from_numpy(lens).to(device)
-        # a cap clip is retried with a doubled cap; from the second retry on,
-        # on the exact path (the clip may be a compaction block's cap)
-        bcap, attempt = cap, 0
-        while True:
-            sb = seed_batch(codes_d, lens_d, p, bcap, seeding if attempt < 2 else "exact")
-            if not bool(sb.overflow.any()):
-                break
-            bcap *= 2
-            attempt += 1
+        sb = seed_batch(codes_d, lens_d, p, cap, seeding)
+        retries = overflow_retries(cap, L, seeding)
+        while bool(sb.overflow.any()):
+            sb = seed_batch(codes_d, lens_d, p, *next(retries))
         h1, h2, st, en, rv, n, tail = (
             x.cpu().numpy() for x in (sb.h1, sb.h2, sb.start, sb.end, sb.rev, sb.n,
                                       sb.tail_start)
@@ -185,7 +180,7 @@ def build_index(contigs: Sequence[Tuple[str, bytes]], p: Params, device=None,
     cols = {k: [] for k in ("h1", "h2", "rid", "start", "end", "off", "rc")}
     for rid, (name, seq) in enumerate(contigs):
         names.append(name)
-        codes = encode_fast(seq)
+        codes = encode_any(seq)
         lengths.append(codes.shape[0])
         h1, h2, st, en, off, rv = extract_contig_kminmers(codes, p, device, seeding, verbose)
         cols["h1"].append(h1)

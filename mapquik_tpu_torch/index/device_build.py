@@ -24,8 +24,10 @@ handle both; a placement failure doubles the table.
 
 The slots equal those of the JAX package's device build, bit for bit; the
 probe answers as on the host-built table, whose slot order within a bucket
-differs. Uploads are synchronous copies of host arrays that nothing writes
-again, so no host buffer is reused while a copy from it may be in flight.
+differs. Each segment is packed to 2 bits per base into a pinned slot of an
+upload ring (ops/upload.py, 3 slots per segment size), copied without
+blocking the host, and rebuilt as uint8 codes on the device by unpack2; a
+slot is packed again only after its own copy's event has completed.
 """
 
 from __future__ import annotations
@@ -35,8 +37,10 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..oracle.pyref import INVALID, encode_fast
-from ..ops.seeding import seed_batch
+from ..io.native import encode_any
+from ..oracle.pyref import INVALID
+from ..ops.seeding import seed_batch, unpack2
+from ..ops.upload import UploadRing
 from ..ops.u32 import lshr
 from ..params import Params
 from .build import RefMeta, plan_windows
@@ -46,6 +50,7 @@ MIN_SEG = 1 << 20  # segment bounds in bases; every segment is a power of two
 MAX_SEG = 1 << 26
 BATCH_WINDOWS = 256
 LOAD = 0.45  # table load at the a-priori bound on unique keys
+SEG_SLOTS = 3  # upload slots per segment size: packing runs ahead of the copies
 _SIGN = -0x80000000  # x ^ _SIGN orders int32 bit patterns as uint32
 
 
@@ -97,6 +102,7 @@ def _extract(encoded, p: Params, cap: int, L: int, device, seeding: str, verbose
     cols: List[list] = [[] for _ in range(6)]
     flags = torch.zeros(2, dtype=torch.bool, device=device)
     pos = torch.arange(L, dtype=torch.int32, device=device)[None, :]
+    ring = UploadRing(device, SEG_SLOTS)
     n_windows = 0
     for rid, (codes, wins) in enumerate(encoded):
         if not wins:
@@ -111,9 +117,9 @@ def _extract(encoded, p: Params, cap: int, L: int, device, seeding: str, verbose
         while wi < len(wins):
             seg_base, SEG, wj = _segment(wins, n_contig, wi)
             seg_len = min(seg_base + SEG, n_contig) - seg_base
-            seg = torch.full((SEG,), INVALID, dtype=torch.uint8, device=device)
-            seg[:seg_len] = torch.from_numpy(np.array(codes[seg_base : seg_base + seg_len])
-                                             ).to(device)
+            p2, mask, seg_lens = ring.put([codes[seg_base : seg_base + seg_len]],
+                                          np.array([seg_len], dtype=np.int32), SEG)
+            seg = unpack2(p2, mask, SEG, seg_lens)[0]
             for b0 in range(wi, wj, W):
                 w = np.asarray(wins[b0 : min(b0 + W, wj)], dtype=np.int64)
                 meta = np.zeros((5, W), dtype=np.int32)  # lens, cs_rel, cs, ce, se
@@ -234,7 +240,7 @@ def build_index_resident(contigs: Sequence[Tuple[str, bytes]], p: Params, device
     lengths: List[int] = []
     L = 64
     for name, seq in contigs:
-        codes = encode_fast(seq)
+        codes = encode_any(seq)
         names.append(name)
         lengths.append(codes.shape[0])
         wins = plan_windows(codes, p)

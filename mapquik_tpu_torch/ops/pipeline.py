@@ -2,15 +2,20 @@
 (counterpart of `mapquik_tpu/ops/pipeline.py`).
 
 `map_batch` runs seeding, the index probe, match segmentation, chaining and
-coordinate projection on the device; `Mapper` is the host loop: it bins
-reads by length, pads each bin's batch, maps it, retries reads whose seed cap
-clipped, and formats PAF lines.
+coordinate projection on the device; `map_batch_packed2` does the same from
+a 2-bit upload. `Mapper.map_reads` streams: it bins reads by
+length, packs each full batch into a pinned upload ring (ops/upload.py),
+keeps up to DEPTH batches in flight on the device, and finalizes them in
+dispatch order: overflow retry, read stats, PAF lines.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import sys
-from typing import Iterable, Iterator, List, Sequence, Tuple
+import time
+from collections import deque
+from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,12 +23,15 @@ import torch
 from ..device import resolve_device
 from ..index.build import RefMeta, build_index
 from ..index.hashtable import HashIndex, probe_hash
-from ..oracle.pyref import encode_fast
-from ..params import Params, _seed_cap
+from ..params import Params, seed_cap
 from .chaining import MapResult, chain_and_select_v2, project_coords
 from .matching import find_matches
-from .seeding import seed_batch
+from .seeding import overflow_retries, seed_batch, unpack2
 from .stats import read_stats_batch
+from .upload import UploadRing
+
+DEPTH = 8  # read batches in flight on the device before the oldest is finalized
+RING_SLOTS = 4  # pinned upload slots per length bin; a slot waits only for its copy
 
 
 def map_batch(codes: torch.Tensor, lengths: torch.Tensor, index: HashIndex,
@@ -35,6 +43,15 @@ def map_batch(codes: torch.Tensor, lengths: torch.Tensor, index: HashIndex,
     mb = find_matches(sb, probe, p)
     sel = chain_and_select_v2(mb, p)
     return project_coords(sel, lengths, ref_lens)._replace(overflow=sb.overflow)
+
+
+def map_batch_packed2(p2: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor,
+                      index: HashIndex, ref_lens: torch.Tensor, p: Params, cap: int, L: int,
+                      seeding: str = "kernel") -> torch.Tensor:
+    """The streaming Mapper's entry: 2-bit codes and the in-read non-ACGT
+    mask (ops.seeding.pack2_host), lengths i32 [B] -> flat int32 [B, 10]."""
+    res = map_batch(unpack2(p2, mask, L, lengths), lengths, index, ref_lens, p, cap, seeding)
+    return flatten_map_result(res)
 
 
 def flatten_map_result(res: MapResult) -> torch.Tensor:
@@ -72,6 +89,42 @@ def format_paf(names: Sequence[str], lengths: Sequence[int], res: MapResult,
     return out
 
 
+@dataclasses.dataclass
+class StreamProfile:
+    """Where one map_reads call spent its time. Host seconds: feed (reading
+    the input iterator and binning), pack (packing and enqueueing uploads),
+    dispatch (enqueueing the map and the result copies), wait (waiting on
+    result events and on upload-slot fences), finalize (overflow retries,
+    read stats, PAF formatting). device_ms: per batch, CUDA events around its
+    work on the compute stream (empty on the CPU). n_bytes / n_positions: bytes
+    uploaded and padded positions they carry."""
+
+    batches: int = 0
+    feed_s: float = 0.0
+    pack_s: float = 0.0
+    dispatch_s: float = 0.0
+    wait_s: float = 0.0
+    finalize_s: float = 0.0
+    device_ms: List[float] = dataclasses.field(default_factory=list)
+    n_bytes: int = 0
+    n_positions: int = 0
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A dispatched batch: its reads, and its results on their way to the host."""
+
+    names: List[str]
+    rows: list
+    lens: np.ndarray  # int32 [B]
+    cap: int
+    L: int
+    flat: torch.Tensor  # int32 [B, 10], pinned on CUDA
+    loci: Optional[torch.Tensor]  # int32 [B] with stats, else None
+    done: Optional[torch.cuda.Event]  # behind the result copies (CUDA only)
+    timing: Optional[tuple]  # (start, end) CUDA timing events
+
+
 class Mapper:
     """Index a reference, then map read streams in padded, length-binned
     batches on `device` (CUDA unless "cpu").
@@ -102,91 +155,146 @@ class Mapper:
         self.index = HashIndex(index.keys.to(device), index.pay.to(device))
         self.meta = meta
         self.ref_lens = torch.from_numpy(meta.lengths.astype(np.int32)).to(device)
+        self.ring = UploadRing(device, RING_SLOTS)
+        self.profile = StreamProfile()
 
     @property
     def n_unique(self) -> int:
         return self.index.n
 
-    def _map_host(self, codes: np.ndarray, lens: np.ndarray, cap: int,
-                  seeding: str) -> np.ndarray:
-        res = map_batch(
-            torch.from_numpy(codes).to(self.device), torch.from_numpy(lens).to(self.device),
-            self.index, self.ref_lens, self.p, cap, seeding,
-        )
-        return flatten_map_result(res).cpu().numpy()
+    def _to_host(self, x: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return x
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return h.copy_(x, non_blocking=True)
 
-    def _map_items(self, items: List[Tuple[str, np.ndarray]], Lb: int, cap0: int,
-                   B: int, stats) -> List[str]:
-        names = [nm for nm, _ in items]
-        codes = np.full((B, Lb), 4, dtype=np.uint8)
+    def _dispatch(self, batch: list, L: int, cap: int, B: int, with_stats: bool) -> _InFlight:
+        """Pack and upload one batch of (name, row, length) items, enqueue its
+        mapping (and its read stats) and the copies of the results to the
+        host. Nothing here waits for the device."""
+        prof = self.profile
+        t0 = time.perf_counter()
         lens = np.zeros(B, dtype=np.int32)
-        for i, (_, c) in enumerate(items):
-            codes[i, : c.shape[0]] = c
-            lens[i] = c.shape[0]
-        flat = self._map_host(codes, lens, cap0, self.seeding)
-        if stats is not None:
-            # at the batch's first cap, before any overflow retry
-            loci = read_stats_batch(
-                torch.from_numpy(codes).to(self.device), torch.from_numpy(lens).to(self.device),
-                self.index, self.p, cap0, self.seeding,
-            )
-            stats.write_batch(names, loci.cpu().numpy()[: len(items)])
-        # overflow retry: a clipped read's mapping may be wrong, so clipped reads
-        # are mapped again at doubled caps until none overflow; from attempt 2
-        # (or at the bin's full width) on the exact path, since the clip may be
-        # a compaction block's cap, which no seed cap can lift
-        cap, attempt, seeding = cap0, 0, self.seeding
-        while flat[: len(items), 9].any():
-            if cap >= Lb and seeding == "exact":
-                raise AssertionError("overflow persisted on the exact path")
-            cap = min(cap * 2, Lb)
-            attempt += 1
-            rows = np.nonzero(flat[: len(items), 9])[0]
-            print(f"seed cap clipped {rows.size} read(s); remapping them at cap {cap}",
-                  file=sys.stderr)
-            rbuf = np.full((B, Lb), 4, dtype=np.uint8)
-            rlens = np.zeros(B, dtype=np.int32)
-            rbuf[: rows.size] = codes[rows]
-            rlens[: rows.size] = lens[rows]
-            seeding = self.seeding if attempt < 2 and cap < Lb else "exact"
-            flat[rows] = self._map_host(rbuf, rlens, cap, seeding)[: rows.size]
-        return format_paf(names, lens[: len(items)].tolist(), unflatten_map_result(flat),
-                          self.meta)
+        lens[: len(batch)] = [n for _, _, n in batch]
+        rows = [r for _, r, _ in batch] + [None] * (B - len(batch))
+        fenced = self.ring.wait_s
+        p2, mask, lens_d = self.ring.put(rows, lens, L)
+        fenced = self.ring.wait_s - fenced
+        t1 = time.perf_counter()
+        timing = None
+        if self.device.type == "cuda":
+            timing = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timing[0].record()
+        flat = map_batch_packed2(p2, mask, lens_d, self.index, self.ref_lens, self.p, cap, L,
+                                 self.seeding)
+        loci = None
+        if with_stats:  # at the batch's first cap, before any overflow retry
+            loci = self._to_host(read_stats_batch(unpack2(p2, mask, L, lens_d), lens_d,
+                                                  self.index, self.p, cap, self.seeding))
+        flat = self._to_host(flat)
+        done = None
+        if timing is not None:
+            timing[1].record()
+            done = timing[1]
+        prof.pack_s += t1 - t0 - fenced
+        prof.wait_s += fenced
+        prof.dispatch_s += time.perf_counter() - t1
+        prof.batches += 1
+        return _InFlight([nm for nm, _, _ in batch], rows, lens, cap, L, flat, loci, done,
+                         timing)
 
-    def map_reads(self, reads: Iterable[Tuple[str, bytes]], stats=None) -> Iterator[str]:
+    def _finalize(self, b: _InFlight, stats) -> List[str]:
+        """Wait for a batch's results; remap its clipped reads; write its read
+        stats; format its PAF lines."""
+        prof = self.profile
+        t0 = time.perf_counter()
+        if b.done is not None:
+            b.done.synchronize()
+            prof.device_ms.append(b.timing[0].elapsed_time(b.timing[1]))
+        t1 = time.perf_counter()
+        n = len(b.names)
+        flat = b.flat.numpy()
+        # a clipped read's mapping may be wrong, so clipped reads are mapped
+        # again under the overflow-retry policy until none is clipped
+        retries = overflow_retries(b.cap, b.L, self.seeding)
+        while flat[:n, 9].any():
+            cap, seeding = next(retries)
+            idx = np.nonzero(flat[:n, 9])[0]
+            print(f"seed cap clipped {idx.size} read(s); remapping them at cap {cap}",
+                  file=sys.stderr)
+            rows = [b.rows[i] for i in idx] + [None] * (b.lens.shape[0] - idx.size)
+            rlens = np.zeros_like(b.lens)
+            rlens[: idx.size] = b.lens[idx]
+            p2, mask, lens_d = self.ring.put(rows, rlens, b.L)
+            flat[idx] = map_batch_packed2(p2, mask, lens_d, self.index, self.ref_lens, self.p,
+                                          cap, b.L, seeding).cpu().numpy()[: idx.size]
+        if stats is not None:
+            stats.write_batch(b.names, b.loci.numpy()[:n])
+        out = format_paf(b.names, b.lens[:n].tolist(), unflatten_map_result(flat), self.meta)
+        prof.wait_s += t1 - t0
+        prof.finalize_s += time.perf_counter() - t1
+        return out
+
+    def map_reads(self, reads: Iterable[Tuple[str, bytes]], batch_size: Optional[int] = None,
+                  stats=None) -> Iterator[str]:
         """Yield PAF lines for mapped reads (unmapped reads are skipped).
 
         Reads go to the smallest length bin that fits them (Params.length_bins,
-        then max_read_len); a bin's batch is mapped when it holds
-        Params.batch_size reads, and the partial batches at the end of the stream. Reads longer
-        than max_read_len are truncated with a warning. A read's sequence may
-        be bytes/str or pre-encoded uint8 codes. With `stats` (an
-        ops.stats.StatsWriter), each read's candidate-locus count is written
-        too, one line per read, mapped or not."""
+        then max_read_len); a bin's batch of `batch_size` reads (default
+        Params.batch_size) is dispatched when it is full, and the partial
+        batches at the end of the stream. Reads longer than max_read_len are
+        truncated with a warning. A read's sequence may be bytes or str (its
+        ASCII bases, encoded in C as it is packed) or uint8 codes (io.native's
+        records). Up to DEPTH batches are in flight; lines come in dispatch
+        order: input order for one bin, bin-flush order across bins. With
+        `stats` (an ops.stats.StatsWriter), each read's candidate-locus count
+        is written too, one line per read, mapped or not. `self.profile`
+        holds the call's StreamProfile."""
         p = self.p
-        B = p.batch_size
+        B = batch_size or p.batch_size
         bins = sorted(set(int(b) for b in p.length_bins if b < p.max_read_len))
         bins.append(p.max_read_len)
-        caps = [min(p.max_minimizers, _seed_cap(Lb, p.density, p.k)) for Lb in bins]
-        pending: List[List[Tuple[str, np.ndarray]]] = [[] for _ in bins]
+        caps = [min(p.max_minimizers, seed_cap(Lb, p.density, p.k)) for Lb in bins]
+        prof = self.profile = StreamProfile()
+        ring_bytes, ring_pos = self.ring.n_bytes, self.ring.n_positions
+        pending: List[list] = [[] for _ in bins]
+        inflight: deque = deque()
         n_truncated = 0
+
+        def dispatch(bi: int):
+            inflight.append(self._dispatch(pending[bi], bins[bi], caps[bi], B, stats is not None))
+            pending[bi] = []
+
+        t = time.perf_counter()
         for name, seq in reads:
-            codes = encode_fast(seq)
-            if codes.shape[0] > p.max_read_len:
+            row = seq.encode() if isinstance(seq, str) else seq
+            if isinstance(row, np.ndarray) and (row.dtype != np.uint8
+                                                or not row.flags.c_contiguous):
+                row = np.ascontiguousarray(row, dtype=np.uint8)
+            n = len(row)
+            if n > p.max_read_len:
                 if n_truncated == 0:
                     print(
-                        f"Warning: read {name} ({codes.shape[0]} bp) exceeds max_read_len "
+                        f"Warning: read {name} ({n} bp) exceeds max_read_len "
                         f"({p.max_read_len}); truncating (raise --max-read-len "
                         f"for full-length parity with the reference).",
                         file=sys.stderr,
                     )
                 n_truncated += 1
-                codes = codes[: p.max_read_len]
-            bi = next(i for i, Lb in enumerate(bins) if codes.shape[0] <= Lb)
-            pending[bi].append((name, codes))
+                row, n = row[: p.max_read_len], p.max_read_len
+            bi = next(i for i, Lb in enumerate(bins) if n <= Lb)
+            pending[bi].append((name, row, n))
             if len(pending[bi]) == B:
-                yield from self._map_items(pending[bi], bins[bi], caps[bi], B, stats)
-                pending[bi] = []
-        for bi, items in enumerate(pending):
-            if items:
-                yield from self._map_items(items, bins[bi], caps[bi], B, stats)
+                prof.feed_s += time.perf_counter() - t
+                dispatch(bi)
+                if len(inflight) >= DEPTH:
+                    yield from self._finalize(inflight.popleft(), stats)
+                t = time.perf_counter()
+        prof.feed_s += time.perf_counter() - t
+        for bi in range(len(bins)):
+            if pending[bi]:
+                dispatch(bi)
+        while inflight:
+            yield from self._finalize(inflight.popleft(), stats)
+        prof.n_bytes = self.ring.n_bytes - ring_bytes
+        prof.n_positions = self.ring.n_positions - ring_pos

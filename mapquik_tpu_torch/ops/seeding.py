@@ -13,8 +13,9 @@ Hashes are int32 bit patterns (see u32.py). Bit-exact with the JAX package.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..oracle.pyref import INVALID
@@ -31,6 +32,58 @@ SEEDING = ("kernel", "plain", "exact")
 """How minimizers are selected: "kernel" runs the CUDA kernels (their plain
 versions on a CPU tensor), "plain" runs their plain PyTorch versions on any
 device, "exact" runs neither (no per-block compaction cap)."""
+
+
+def overflow_retries(cap: int, L: int, seeding: str):
+    """The overflow-retry policy: (cap, seeding) of each retry after a seed cap
+    clipped. The cap doubles up to L; from the second retry, or once the cap
+    reaches L, the exact path runs, since the clip may be a compaction block's
+    cap, which no seed cap lifts. Raises if the exact path at cap L clipped."""
+    first = seeding
+    attempt = 0
+    while True:
+        if cap >= L and seeding == "exact":
+            raise AssertionError("overflow persisted on the exact path")
+        cap = min(cap * 2, L)
+        attempt += 1
+        seeding = first if attempt < 2 and cap < L else "exact"
+        yield cap, seeding
+
+
+def pack2_host(codes: np.ndarray, lengths: Optional[np.ndarray] = None):
+    """2-bit codes and a non-ACGT bitmask, 2.25 bits per base, of codes u8
+    [B, L] with L divisible by 8: (p2 u8 [B, L // 4], mask u8 [B, L // 8],
+    numpy packbits order). With `lengths` the mask marks in-read non-ACGT bases
+    only (unpack2 rebuilds the padding from the lengths), so it is all zero for
+    an N-free batch; without, it also marks the padding."""
+    if not codes.flags.c_contiguous:
+        codes = np.ascontiguousarray(codes)
+    v = codes.view(np.uint32)  # little-endian groups of 4 adjacent bases
+    p2 = (
+        (v & np.uint32(3))
+        | ((v >> np.uint32(8)) & np.uint32(3)) << np.uint32(2)
+        | ((v >> np.uint32(16)) & np.uint32(3)) << np.uint32(4)
+        | ((v >> np.uint32(24)) & np.uint32(3)) << np.uint32(6)
+    ).astype(np.uint8)
+    bad = codes >= 4
+    if lengths is not None:
+        bad &= np.arange(codes.shape[1])[None, :] < np.asarray(lengths)[:, None]
+    return p2, np.packbits(bad, axis=1)
+
+
+def unpack2(p2: torch.Tensor, mask: torch.Tensor, L: int,
+            lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse of pack2_host on p2's device: codes u8 [B, L] (0..4). With
+    `lengths`, positions at or past a row's length are INVALID too."""
+    B = p2.shape[0]
+    dev = p2.device
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=dev)
+    codes = ((p2[:, :, None] >> shifts) & 3).reshape(B, L)
+    bshifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)
+    bad = ((mask[:, :, None] >> bshifts) & 1).reshape(B, L).bool()
+    if lengths is not None:
+        bad |= _arange(L, dev) >= lengths[:, None]
+    return codes.masked_fill_(bad, INVALID)
 
 
 class SeedBatch(NamedTuple):

@@ -108,9 +108,9 @@ class Params:
             kw["ref_window"] = max(fast_bin - kw["ref_halo"], kw["ref_halo"])
         probe2 = cls(**kw)
         if "max_minimizers" not in kw:
-            kw["max_minimizers"] = _seed_cap(probe2.max_read_len, probe2.density, probe2.k)
+            kw["max_minimizers"] = seed_cap(probe2.max_read_len, probe2.density, probe2.k)
         if "ref_window_minimizers" not in kw:
-            kw["ref_window_minimizers"] = _seed_cap(
+            kw["ref_window_minimizers"] = seed_cap(
                 probe2.ref_window + probe2.ref_halo, probe2.density, probe2.k
             )
         return cls(**kw)
@@ -122,13 +122,16 @@ class Params:
         return min(t, 0xFFFFFFFF)
 
 
-def _seed_cap(length: int, density: float, k: int) -> int:
+def seed_cap(length: int, density: float, k: int) -> int:
     """Minimizer capacity covering mean + 6 sigma of the selected count, rounded
     up to a multiple of 128. The selection rate per HPC position is ~2*density
     (the predicate tests the canonical hash, the min of two strand hashes)."""
     m = min(2.0 * density, 1.0) * length
     need = m + 6.0 * math.sqrt(max(m, 1.0)) + 16 + k
     return max(128, 128 * math.ceil(need / 128.0))
+
+
+_seed_cap = seed_cap  # the JAX package's name for it
 
 
 def default_output_prefix(p: Params) -> str:

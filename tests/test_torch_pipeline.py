@@ -248,3 +248,82 @@ def test_params_carry_across():
         assert tparams._seed_cap(*args) == jparams._seed_cap(*args)
     with pytest.raises(ValueError):
         convert.params_from_jax(dataclasses.replace(jparams.Params(), chain_scan=False))
+
+
+# ---------------------------------------------------------------------------
+# the streaming Mapper against the JAX Mapper. Every variant maps at B = 32
+# with the caps of the variants above, so the JAX ops compiled for them are
+# reused; only the 1024 bin adds shapes.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: several test processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def stream_reads(genome, reads):
+    """The reads above, 45 shorter ones (most fit the 1024 bin), and 10 of
+    those with N runs, lowercase stretches or both."""
+    short = jsim.simulate_reads(genome, 45, mean_len=900, accuracy=0.99, seed=8)
+    rng = np.random.default_rng(9)
+    marked = []
+    for i, (name, seq) in enumerate(short[:10]):
+        a = int(rng.integers(50, len(seq) - 100))
+        if i % 3 != 1:
+            seq = seq[:a] + b"N" * int(rng.integers(1, 40)) + seq[a + 40 :]
+        if i % 3 != 0:
+            seq = seq[: a // 2] + seq[a // 2 : a].lower() + seq[a:]
+        marked.append((f"{name}_marked", seq))
+    return reads + short + marked
+
+
+@pytest.mark.parametrize("variant", ["one_bin", "two_bins", "retry"])
+def test_streaming_mapper_matches_jax(variant, genome, stream_reads, jax_index, tmp_path,
+                                      capsys, one_thread):
+    """PAF lines and read stats of the streaming Mapper equal the JAX Mapper's,
+    at batch_size=32 given to map_reads over Params.batch_size=64: in input
+    order with one bin, as sorted lists with two (JAX orders bins by its
+    dispatch groups); the 3 kb read is truncated, the N-run reads take the
+    mask path, and the retry variant remaps clipped reads."""
+    from mapquik_tpu.ops.stats import StatsWriter as JStatsWriter
+    from mapquik_tpu_torch.ops.stats import StatsWriter
+
+    nohpc = dataclasses.replace(JP, use_hpc=False, max_minimizers=256)
+    index_p, jp = {  # the index does not depend on bins, batch size or read caps
+        "one_bin": (JP, dataclasses.replace(JP, batch_size=64)),
+        "two_bins": (JP, dataclasses.replace(JP, batch_size=64, length_bins=(1024,),
+                                             max_minimizers=256)),
+        "retry": (nohpc, dataclasses.replace(nohpc, batch_size=64)),
+    }[variant]
+    idx, meta = jax_index(index_p)
+    jw = JStatsWriter(str(tmp_path / "jax"))
+    jax.config.update("jax_disable_jit", True)
+    try:
+        want = list(JMapper.from_index(idx, meta, jp).map_reads(stream_reads, batch_size=32,
+                                                                stats=jw))
+    finally:
+        jax.config.update("jax_disable_jit", False)
+        jw.close()
+    jerr = capsys.readouterr().err
+    tw = StatsWriter(str(tmp_path / "torch"))
+    mapper = Mapper.from_index(*convert.from_jax(idx, meta, jp, device="cpu"), device="cpu")
+    got = list(mapper.map_reads(stream_reads, batch_size=32, stats=tw))
+    tw.close()
+    err = capsys.readouterr().err
+    jstats = open(tmp_path / "jax.read_stats").read().splitlines()
+    tstats = open(tmp_path / "torch.read_stats").read().splitlines()
+    if variant == "two_bins":
+        want, got, jstats, tstats = sorted(want), sorted(got), sorted(jstats), sorted(tstats)
+    assert got == want
+    assert tstats == jstats and len(tstats) == len(stream_reads)
+    assert len(got) >= 70
+    assert sum("_marked" in x for x in got) >= 8
+    assert "exceeds max_read_len" in err and "exceeds max_read_len" in jerr
+    assert ("seed cap clipped" in err) == ("seed cap clipped" in jerr) == (variant == "retry")
+    assert mapper.profile.batches == (4 if variant == "two_bins" else 3)

@@ -48,7 +48,19 @@ Phases, each timed on its own line:
   5c. ring stress: 3072 reads of about 10 kb (12 batches of 256, three times
      the upload ring's slots) streamed over phase 5's index, the PAF equal,
      line for line, to the same reads mapped one batch at a time with the
-     card synchronized after each batch.
+     card synchronized after each batch;
+  8. parallel (mapquik_tpu_torch/parallel/), over phase 5's index and reads:
+     on meshes that list cuda:0 2, 3 and 4 times, map_batch_sharded and
+     map_batch_hash_sharded (the index sharded by h1 % D) over 256 reads of
+     the 24576 bin (255 at D = 3) and 32 of the 65536 bin, every field
+     equal to map_batch, the first call of each under sync debug mode
+     "error", both kernels' launches per path, reads/s, and at D = 4 device
+     launches and busy time; extract_windows_sharded over 256 index windows
+     at D = 4, equal to seed_batch; the same on the real mesh when more than
+     one card is present; phase 6's 249 Mb table sharded 4 ways, answering like it on
+     1 M of its keys and 1 M random keys; two processes (init_distributed,
+     gloo) on the card mapping byte-range shards 0/2 and 1/2 of phase 5's
+     reads, their PAFs together phase 5's.
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -86,6 +98,8 @@ from mapquik_tpu_torch.ops import seeding as sd  # noqa: E402
 from mapquik_tpu_torch.ops import pipeline  # noqa: E402
 from mapquik_tpu_torch.ops.pipeline import Mapper  # noqa: E402
 from mapquik_tpu_torch.ops.stats import StatsWriter  # noqa: E402
+from mapquik_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from mapquik_tpu_torch.parallel import sharded_index as psi  # noqa: E402
 from mapquik_tpu_torch.params import Params, seed_cap  # noqa: E402
 
 DEV = "cuda"  # the device of every phase
@@ -382,8 +396,9 @@ def check_same_answers(resident, host, n_sample: int, n_random: int, seed: int) 
             f"({n_hit - h1.shape[0]} hit)")
 
 
-def chromosome_index(card: str) -> None:
-    """Phase 6: one contig of GRCh38 chr1's length through both builds."""
+def chromosome_index(card: str):
+    """Phase 6: one contig of GRCh38 chr1's length through both builds;
+    returns the host build's table."""
     t = time.perf_counter()
     chrom = markov_genome(CHR1_LEN, seed=14, n_contigs=1)
     print(f"input: one contig of {CHR1_LEN} bases, made in {time.perf_counter() - t:.2f} s")
@@ -417,6 +432,7 @@ def chromosome_index(card: str) -> None:
     print(f"host build: {t_host:.3f} s, peak device memory {peak_host / 2**30:.3f} GiB, "
           f"on {card}")
     print(check_same_answers(res, host, 1 << 20, 1 << 20, seed=15))
+    return host
 
 
 def cli_paths(genome, reads, expected) -> None:
@@ -605,6 +621,260 @@ def ring_stress(mapper, genome, p, card) -> None:
           f"after each {t_one:.3f} s, on {card}")
 
 
+def table_columns(index):
+    """The stored slots of a table as its deduped unique-seed columns, in slot
+    order: (h1, h2 uint32, rid, start, end, offset int32, rc bool)."""
+    keys = index.keys.reshape(-1, 2).cpu().numpy()
+    pay = index.pay.reshape(-1, 4).cpu().numpy()
+    stored = ~((keys[:, 0] == -1) & (keys[:, 1] == -1))
+    k, q = keys[stored], pay[stored]
+    return (k[:, 0].view(np.uint32), k[:, 1].view(np.uint32), q[:, 0] >> 1, q[:, 1],
+            q[:, 2], q[:, 3], (q[:, 0] & 1).astype(bool))
+
+
+def bin_batch(reads, L, n):
+    """The first n reads whose smallest bin is L, as codes u8 [n, L] and
+    lengths i32 [n] on the card."""
+    lo = max([b for b in Params().length_bins if b < L] + [0])
+    rows = [native.encode_any(s) for _, s in reads if lo < len(s) <= L][:n]
+    if len(rows) < n:
+        raise AssertionError(f"only {len(rows)} reads fit the {L} bin")
+    codes = np.full((n, L), 4, np.uint8)
+    for i, r in enumerate(rows):
+        codes[i, : r.size] = r
+    lens = np.array([r.size for r in rows], np.int32)
+    return torch.from_numpy(codes).to(DEV), torch.from_numpy(lens).to(DEV)
+
+
+def profile_call(fn):
+    """(device launches, device busy ms) of one call under torch.profiler
+    (device activity only): kernels and copies on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in dev), sum(e.self_device_time_total for e in dev) / 1e3
+
+
+def mesh_paths(mesh, label, mapper, cols, batches, p, card, profiled: bool) -> None:
+    """Phase 8 on one mesh: map_batch_sharded and map_batch_hash_sharded over a
+    24576-bin and a 65536-bin batch (B cut to a multiple of the mesh size),
+    each equal to map_batch in every field; the first call of each under sync
+    debug mode "error"; both kernels' launches per path (counts set to 0 just
+    before the path, read just after); on the 24576-bin batch, reads/s
+    (synchronized, median of 3 calls) and, if `profiled`, one call's device
+    launches and busy time under torch.profiler. map_batch on one device is
+    the reference."""
+    D = mesh.size
+    index, ref_lens = mapper.index, mapper.ref_lens
+    sidx = psi.build_sharded_index(*cols, D, mesh)
+    if sidx.n != index.n:
+        raise AssertionError(f"{D} shards hold {sidx.n} keys, the table {index.n}")
+    paths = {
+        "map_batch": lambda c, n, cap: pipeline.map_batch(c, n, index, ref_lens, p, cap),
+        "map_batch_sharded": lambda c, n, cap: pmesh.map_batch_sharded(
+            mesh, c, n, index, ref_lens, p, cap),
+        "map_batch_hash_sharded": lambda c, n, cap: psi.map_batch_hash_sharded(
+            mesh, c, n, sidx, ref_lens, p, cap),
+    }
+    for name, fn in paths.items():
+        counts = dict.fromkeys(cs.LAUNCHES, 0)
+        rate, busy = None, ""
+        for L, (codes, lens) in batches.items():
+            B = codes.shape[0] // D * D
+            codes, lens = codes[:B], lens[:B]
+            cap = min(p.max_minimizers, seed_cap(L, p.density, p.k))
+            torch.cuda.synchronize()
+            cs.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = fn(codes, lens, cap)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            for k, v in cs.LAUNCHES.items():
+                counts[k] += v
+            got, n_mapped = got if name == "map_batch_sharded" else (got, None)
+            want = pipeline.map_batch(codes, lens, index, ref_lens, p, cap)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} on {label} differs from map_batch at L={L}")
+            if n_mapped is not None and int(n_mapped) != int(want.mapped.sum()):
+                raise AssertionError(f"{name} on {label}: n_mapped {int(n_mapped)}, "
+                                     f"{int(want.mapped.sum())} mapped")
+            if rate is None:
+                t = statistics.median(synced(lambda: fn(codes, lens, cap))[1] for _ in range(3))
+                rate = (B, L, B / t, t * 1e3)
+                if profiled:
+                    n, ms = profile_call(lambda: fn(codes, lens, cap))
+                    busy = f", device {ms:.3f} ms busy in {n} launches (torch.profiler)"
+        if min(counts.values()) == 0:
+            raise AssertionError(f"{name} on {label} did not launch both kernels: {counts}")
+        where = "one device" if name == "map_batch" else label
+        print(f"{name} on {where}: every field equal to map_batch at L in {sorted(batches)}, "
+              f"no synchronizing op; kernel launches {counts}; {rate[0]} reads at L={rate[1]}: "
+              f"{rate[2]:.1f} reads/s, {rate[3]:.2f} ms per batch (synchronized, median of 3)"
+              f"{busy} on {card}")
+
+
+def window_extraction(mesh, label, genome, p) -> None:
+    """Phase 8: extract_windows_sharded over one 256-window index batch equal
+    to seed_batch in every SeedBatch field."""
+    wins = []
+    for _, seq in genome:
+        codes = native.encode_any(seq)
+        wins += [(codes, cs_, se) for cs_, _, se in ib.plan_windows(codes, p)]
+    wins = wins[: min(256, len(wins)) // mesh.size * mesh.size]
+    L = max(1 << int(np.ceil(np.log2(max(se - cs_ for _, cs_, se in wins)))), 1 << 15)
+    arr = np.full((len(wins), L), 4, np.uint8)
+    lens = np.zeros(len(wins), np.int32)
+    for i, (codes, cs_, se) in enumerate(wins):
+        arr[i, : se - cs_] = codes[cs_:se]
+        lens[i] = se - cs_
+    arr, lens = torch.from_numpy(arr).to(DEV), torch.from_numpy(lens).to(DEV)
+    cap = p.ref_window_minimizers
+    cs.reset_launches()
+    got = pmesh.extract_windows_sharded(mesh, arr, lens, p, cap)
+    torch.cuda.synchronize()
+    launches = dict(cs.LAUNCHES)
+    want = sd.seed_batch(arr, lens, p, cap)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"extract_windows_sharded on {label} differs from seed_batch")
+    if launches["seed_select_compact"] == 0:
+        raise AssertionError(f"extract_windows_sharded on {label} launched {launches}")
+    print(f"extract_windows_sharded on {label}: {len(wins)} windows of L={L}, every "
+          f"SeedBatch field equal to seed_batch ({int(got.n.sum())} k-min-mers); "
+          f"launches {launches}")
+
+
+def sharded_chromosome(host, card) -> None:
+    """Phase 8: phase 6's 249 Mb host table sharded 4 ways from its columns
+    answers like it on 1 M of its keys and 1 M random keys."""
+    cols = table_columns(host)
+    mesh = pmesh.make_mesh(devices=[DEV] * 4)
+    sidx, t_build = synced(lambda: psi.build_sharded_index(*cols, 4, mesh))
+    if sidx.n != host.n:
+        raise AssertionError(f"4 shards hold {sidx.n} keys, the table {host.n}")
+    sizes = [(t.keys.numel() + t.pay.numel()) * 4 for t in sidx.tables]
+    print(f"249 Mb table sharded 4 ways from its {cols[0].shape[0]} columns in {t_build:.3f} s "
+          f"(host placement, synchronized) on {card}; shard bytes {sizes} "
+          f"(replicated table {(host.keys.numel() + host.pay.numel()) * 4})")
+    h1, h2 = stored_keys(host)
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    take = torch.randint(0, h1.shape[0], (1 << 20,), generator=gen, device=DEV)
+    r1, r2 = (torch.randint(-2**31, 2**31, (1 << 20,), generator=gen, device=DEV,
+                            dtype=torch.int32) for _ in range(2))
+    q1, q2 = torch.cat([h1[take], r1]), torch.cat([h2[take], r2])
+    parts = [torch.cat(x) for x in zip(*(psi.probe_hash_sharded(
+        mesh, sidx, list(q1.chunk(4)), list(q2.chunk(4)))))]
+    got, want = ProbeResult(*parts), probe_hash(host, q1, q2)
+    if not torch.equal(got.hit, want.hit) or not bool(got.hit[: 1 << 20].all()):
+        raise AssertionError("the sharded 249 Mb table holds other keys than the table")
+    for field in ProbeResult._fields[1:]:
+        if not torch.equal(getattr(got, field)[got.hit], getattr(want, field)[want.hit]):
+            raise AssertionError(f"the sharded 249 Mb table differs in {field}")
+    print(f"sharded 249 Mb table: {sidx.n} keys as the table; probe answers equal on "
+          f"{1 << 20} of its keys (all hit) and {1 << 20} random keys "
+          f"({int(got.hit[1 << 20:].sum())} hit)")
+
+
+_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, {root!r})
+import torch
+import torch.distributed as dist
+from mapquik_tpu_torch.index.serialize import load_index
+from mapquik_tpu_torch.ops import cuda_seeding as cs
+from mapquik_tpu_torch.ops.pipeline import Mapper
+from mapquik_tpu_torch.params import Params
+from mapquik_tpu_torch.parallel.multihost import host_shard, init_distributed, run_host_shard
+
+active = init_distributed()
+index, meta = load_index({index!r})
+mapper = Mapper.from_index(index, meta, Params())
+t = time.perf_counter()
+out = run_host_shard({reads!r}, mapper, {prefix!r})
+torch.cuda.synchronize()
+print("WORKER " + json.dumps({{"active": active, "shard": host_shard(), "paf": out,
+                              "map_s": time.perf_counter() - t,
+                              "launches": dict(cs.LAUNCHES)}}), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def two_processes(mapper, reads, lines) -> None:
+    """Phase 8: two init_distributed processes (gloo) on the one card map
+    byte-range shards 0/2 and 1/2 of phase 5's reads; their PAFs together
+    are phase 5's."""
+    import socket
+
+    from mapquik_tpu_torch.index.serialize import save_index
+
+    with tempfile.TemporaryDirectory() as d:
+        rpath, ipath = os.path.join(d, "r.fa"), os.path.join(d, "idx.npz")
+        write_fasta(rpath, reads)
+        save_index(ipath, mapper.index, mapper.meta)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        script = _WORKER.format(root=ROOT, index=ipath, reads=rpath,
+                                prefix=os.path.join(d, "out"))
+        t = time.perf_counter()
+        procs = []
+        try:
+            for pid in range(2):
+                env = dict(os.environ, MAPQUIK_COORDINATOR=f"127.0.0.1:{port}",
+                           MAPQUIK_NUM_PROCESSES="2", MAPQUIK_PROCESS_ID=str(pid))
+                procs.append(subprocess.Popen([sys.executable, "-c", script], env=env,
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True))
+            outs = [pr.communicate(timeout=180) for pr in procs]
+        finally:
+            for pr in procs:
+                pr.kill()
+                pr.wait()
+        for pid, (pr, (out, err)) in enumerate(zip(procs, outs)):
+            rep = [json.loads(x[7:]) for x in out.splitlines() if x.startswith("WORKER ")]
+            rep = rep[0] if rep else {}
+            if (pr.returncode != 0 or not rep.get("active") or rep["shard"] != [pid, 2]
+                    or rep["launches"]["seed_select_compact"] == 0):
+                raise AssertionError(f"process {pid} failed:\n{out}\n{err[-4000:]}")
+            print(f"process {pid}: shard {pid}/2 mapped in {rep['map_s']:.3f} s, launches "
+                  f"{rep['launches']}")
+        shards = []
+        for pid in range(2):
+            with open(os.path.join(d, f"out.shard{pid}of2.paf")) as f:
+                shards += f.read().splitlines()
+    if sorted(shards) != sorted(lines):
+        raise AssertionError(f"the two processes' PAFs differ from phase 5's "
+                             f"({len(set(shards) ^ set(lines))} lines differ)")
+    print(f"two processes on the card (gloo, byte-range shards 0/2 and 1/2): {len(shards)} "
+          f"PAF lines, phase 5's; {time.perf_counter() - t:.2f} s from start to both done")
+
+
+def parallel(mapper, genome, reads, lines, host, card) -> None:
+    """Phase 8."""
+    p = Params()
+    cols = table_columns(mapper.index)
+    batches = {24576: bin_batch(reads, 24576, 256), 65536: bin_batch(reads, 65536, 32)}
+    for D in (2, 3, 4):
+        mesh_paths(pmesh.make_mesh(devices=[DEV] * D), f"{D} x cuda:0", mapper, cols,
+                   batches, p, card, profiled=D == 4)
+    window_extraction(pmesh.make_mesh(devices=[DEV] * 4), "4 x cuda:0", genome, p)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        real = pmesh.make_mesh()
+        mesh_paths(real, f"{n_cards} cards", mapper, cols, batches, p, card, profiled=True)
+        window_extraction(real, f"{n_cards} cards", genome, p)
+    else:
+        print("real mesh: 1 card present, so only logical meshes ran; no copy between "
+              "cards (P2P, NVLink) was exercised")
+    sharded_chromosome(host, card)
+    two_processes(mapper, reads, lines)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -765,13 +1035,17 @@ def main() -> int:
 
     with phase("5c ring stress"):
         ring_stress(mapper, genome, p, card)
-        del mapper, plain, host, small
+        del plain, host, small
 
     with phase("6 chromosome-scale index"):
-        chromosome_index(card)
+        chrom_host = chromosome_index(card)
 
     with phase("7 command line"):
         cli_paths(*example)
+
+    with phase("8 parallel"):
+        parallel(mapper, genome, reads, lines, chrom_host, card)
+        del mapper, chrom_host
 
     print(f"total {time.perf_counter() - t_all:.2f} s of phases, "
           f"{time.perf_counter() - T_START:.2f} s since the script started")

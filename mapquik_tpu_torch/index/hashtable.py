@@ -136,10 +136,11 @@ def build_hash_index(h1, h2, rid, start, end, offset, rc, device, load: float = 
                      pay=torch.from_numpy(pay).to(device))
 
 
-def probe_hash(index: HashIndex, qh1: torch.Tensor, qh2: torch.Tensor) -> ProbeResult:
+def probe_payload(index: HashIndex, qh1: torch.Tensor, qh2: torch.Tensor):
     """Constant-depth lookup of int32-bit-pattern keys [...]: gather both
     candidate buckets' 8 key pairs, match, then gather the payload of the
-    matching slot (slot 0's payload where nothing matches)."""
+    matching slot. Returns (hit bool [...], pay int32 [..., 4] = (rid << 1 |
+    rc, start, end, offset)); a miss reads slot 0's payload."""
     mask = index.n_buckets - 1
     b1 = qh1 & mask
     b2 = (qh2 ^ lshr(qh1, 16)) & mask
@@ -154,7 +155,13 @@ def probe_hash(index: HashIndex, qh1: torch.Tensor, qh2: torch.Tensor) -> ProbeR
         s = torch.where(m, b[..., None] * BUCKET + off, -1).amax(-1)
         hit = m.any(-1) if hit is None else hit | m.any(-1)
         slot = s if slot is None else torch.maximum(slot, s)
-    pay = index.pay.reshape(-1, 4)[slot.clamp(min=0).long()]  # [..., 4]
+    return hit, index.pay.reshape(-1, 4)[slot.clamp(min=0).long()]
+
+
+def probe_hash(index: HashIndex, qh1: torch.Tensor, qh2: torch.Tensor) -> ProbeResult:
+    """probe_payload's answer as a ProbeResult (slot 0's payload where
+    nothing matches)."""
+    hit, pay = probe_payload(index, qh1, qh2)
     return ProbeResult(
         hit=hit,
         rid=pay[..., 0] >> 1,

@@ -15,7 +15,7 @@ segmented log-depth shift-scans.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,7 +39,7 @@ class MapResult(NamedTuple):
     r_end: torch.Tensor    # int32 [B]
     score: torch.Tensor    # int32 [B]
     mapq: torch.Tensor     # int32 [B]
-    overflow: torch.Tensor = None  # bool [B]: a seed cap clipped this read
+    overflow: torch.Tensor  # bool [B]: a seed cap clipped this read
 
 
 def _tail(head: torch.Tensor) -> torch.Tensor:
@@ -166,9 +166,11 @@ def chain_and_select_v2(mb: MatchBatch, p: Params) -> tuple:
     )
 
 
-def project_coords(sel: tuple, q_len: torch.Tensor, ref_lens: torch.Tensor) -> MapResult:
+def project_coords(sel: tuple, q_len: torch.Tensor, ref_lens: torch.Tensor,
+                   overflow: Optional[torch.Tensor] = None) -> MapResult:
     """find_coords: extend the chain span to the full read length, clamped at
-    contig boundaries; int32 throughout."""
+    contig boundaries; int32 throughout. `overflow` (bool [B]) marks the reads
+    a seed cap clipped (SeedBatch.overflow); omitted, no read was clipped."""
     mapped, rc, q_s, q_e, r_s, r_e, score, mapq, rid = sel
     r_len = ref_lens[torch.clamp(rid, 0, ref_lens.shape[0] - 1).long()].to(torch.int32)
     q_len = q_len.to(torch.int32)
@@ -199,4 +201,5 @@ def project_coords(sel: tuple, q_len: torch.Tensor, ref_lens: torch.Tensor) -> M
         r_end=torch.where(rc, f_re_r, f_re_f),
         score=score,
         mapq=mapq,
+        overflow=torch.zeros_like(mapped) if overflow is None else overflow,
     )

@@ -42,7 +42,7 @@ def map_batch(codes: torch.Tensor, lengths: torch.Tensor, index: HashIndex,
     probe = probe_hash(index, sb.h1, sb.h2)
     mb = find_matches(sb, probe, p)
     sel = chain_and_select_v2(mb, p)
-    return project_coords(sel, lengths, ref_lens)._replace(overflow=sb.overflow)
+    return project_coords(sel, lengths, ref_lens, sb.overflow)
 
 
 def map_batch_packed2(p2: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor,
